@@ -1,0 +1,90 @@
+"""Command-line entry point. Mirrors pbrs_tpu/cli.py for the flags ported so
+far; any other flag or preset exits with "not yet ported".
+
+    python -m pbrs_tpu_torch.cli --scene_name cornell_box --msaa 2 \\
+        --depth 5 --resolution 256x256 --output cornell.exr
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import torch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="pbrs_tpu_torch",
+        description="wavefront path tracer on PyTorch + CUDA")
+    p.add_argument("--scene_name", default="cornell_box",
+                   help="preset scene name")
+    p.add_argument("--integrator", default="path",
+                   help="path (the direct integrator is not ported yet)")
+    p.add_argument("--msaa", type=int, default=2,
+                   help="sqrt of samples-per-pixel")
+    p.add_argument("--depth", type=int, default=5, help="max path depth")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--resolution", default=None, metavar="WxH",
+                   help="override the scene camera resolution")
+    p.add_argument("--output", default=None, help="output EXR/PNG path")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda when available, else "
+                        "cpu)")
+    return p
+
+
+def with_resolution(scene, w: int, h: int):
+    """The scene seen by a camera of w x h pixels with the same view."""
+    from .geometry import camera as cam_lib
+
+    cam = scene.camera
+    fresh = cam_lib.make_camera((w, h), 40.0)
+    return scene.replace(camera=fresh.replace(
+        center=cam.center, orientation=cam.orientation,
+        a=cam.a * ((cam.width // 2) / (w // 2)),
+        b=cam.b * ((cam.height // 2) / (h // 2)),
+        c=cam.c))
+
+
+def main(argv=None) -> int:
+    args, rest = build_parser().parse_known_args(argv)
+    if rest:
+        sys.exit(f"pbrs_tpu_torch: {' '.join(rest)}: not yet ported")
+    if args.integrator != "path":
+        sys.exit(f"pbrs_tpu_torch: --integrator {args.integrator}: not yet "
+                 "ported")
+    from . import render as render_mod
+    from .io import image as io_image
+    from .scene import presets
+
+    if args.scene_name not in presets.PRESETS:
+        sys.exit(f"pbrs_tpu_torch: scene {args.scene_name!r}: not yet "
+                 f"ported (have {sorted(presets.PRESETS)})")
+    scene = presets.PRESETS[args.scene_name]()
+    if args.resolution:
+        w, h = (int(x) for x in args.resolution.lower().split("x"))
+        scene = with_resolution(scene, w, h)
+    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    spp = args.msaa * args.msaa
+
+    t0 = time.time()
+    img, stats = render_mod.render_image(
+        scene, spp=spp, max_depth=args.depth, seed=args.seed, progress=True,
+        device=device)
+    wall = time.time() - t0
+    mrays = stats.traced_rays / max(stats.wall_time, 1e-9) / 1e6
+    print(f"whole render time = {wall:.2f}s ({mrays:.1f} Mrays/s, "
+          f"{stats.integrator} path on {device})")
+    out = args.output or f"{args.scene_name}-path-{spp}spp.exr"
+    if out.endswith(".png"):
+        io_image.write_png(out, img)
+    else:
+        io_image.write_exr(out, img)
+    print(f"Image written to {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,113 @@
+"""Next-event estimation with multiple importance sampling. Mirrors
+pbrs_tpu/integrators/nee.py in its two-arm mode for area lights and the
+none/const/gradient environment (delta lights, environment importance
+sampling and the folded mode are not ported yet).
+
+One light is chosen uniformly per ray among area + env; two shadow
+batches per call: the light-sampled direction and the BSDF-sampled one
+(shared by the area-MIS arm and the env arm).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..bxdf import bsdf as bsdf_mod
+from ..core import vecmath as vm
+from ..geometry import ray as ray_mod
+from ..lights import lights as lt
+
+
+def _power2_heuristic(f_pdf, g_pdf):
+    f2 = f_pdf * f_pdf
+    g2 = g_pdf * g_pdf
+    return f2 / torch.clamp_min(f2 + g2, 1e-30)
+
+
+def uniform_sample_one_light(scene, lobes, frame, hit_pos, hit_normal, wo,
+                             u_select, u_light, u_scatter, occlude_fn, alive):
+    """Direct lighting [N,3] at shading points. `occlude_fn(rays)` is the
+    any-hit query; lanes with `alive` false get t_max=0 shadow rays."""
+    if scene.delta_lights.count:
+        raise NotImplementedError(
+            "pbrs_tpu.lights.lights.sample_delta (delta lights in NEE) is "
+            "not ported to pbrs_tpu_torch yet")
+
+    def mask_dead(rays):
+        return rays.replace(t_max=torch.where(alive, rays.t_max, 0.0))
+
+    n_area = scene.area_lights.count
+    has_env = 1 if scene.env.kind != lt.ENV_NONE else 0
+    n_lights = n_area + has_env
+    if n_lights == 0:
+        return torch.zeros_like(hit_pos)
+
+    chosen = torch.clamp_max((u_select * n_lights).to(torch.int32),
+                             n_lights - 1)
+    arm_area = chosen < n_area
+    arm_env = chosen >= n_area
+    result = torch.zeros_like(hit_pos)
+    a_idx = torch.clamp(chosen, 0, max(n_area - 1, 0))
+
+    # ------------------------ light-sampled arm ------------------------
+    if n_area > 0:
+        li_a, wi_a, pdf_a, pt_a = lt.sample_area(
+            scene.area_lights, a_idx, hit_pos, u_light)
+        z_axis = torch.tensor([0.0, 0.0, 1.0], device=hit_pos.device)
+        a3 = arm_area[..., None]
+        li_l = torch.where(a3, li_a, 0.0)
+        wi_l = torch.where(a3, wi_a, z_axis)
+        target_l = torch.where(a3, pt_a, hit_pos)
+        pdf_l = torch.where(arm_area, pdf_a, 1.0)
+
+        f_l = bsdf_mod.eval_bsdf(lobes, frame, wo, wi_l) * torch.abs(
+            vm.dot(hit_normal, wi_l))[..., None]
+        scatter_pdf = bsdf_mod.pdf_bsdf(lobes, frame, wo, wi_l)
+        shadow = ray_mod.spawn_limited_to(hit_pos, hit_normal, target_l)
+        occluded_l = occlude_fn(mask_dead(shadow))
+        weight = _power2_heuristic(pdf_l, scatter_pdf)
+        valid = (arm_area & ~occluded_l & (pdf_l > 0.0)
+                 & ((li_l[..., 0] > 0.0) | (li_l[..., 1] > 0.0)
+                    | (li_l[..., 2] > 0.0)))
+        contrib = f_l * li_l * (weight * vm.weak_recip(pdf_l))[..., None]
+        result = result + torch.where(valid[..., None], contrib, 0.0)
+
+    # ---------------- BSDF-sampled arm (area MIS + env) ----------------
+    f_b, wi_b, pdf_b, is_delta_b = bsdf_mod.sample_bsdf(lobes, frame, wo,
+                                                        u_scatter)
+    f_b = f_b * torch.abs(vm.dot(hit_normal, wi_b))[..., None]
+    if n_area > 0:
+        li_b, pdf_light_b, hit_light, pt_b = lt.area_radiance_to(
+            scene.area_lights, a_idx, hit_pos, wi_b)
+    else:
+        pt_b = hit_pos
+
+    # Shared shadow batch: bounded to the light point on the area arm,
+    # unbounded on the env arm.
+    shadow_b = ray_mod.spawn_limited_to(hit_pos, hit_normal, pt_b)
+    env_rays = ray_mod.spawn(hit_pos, hit_normal, wi_b)
+    e3 = arm_env[..., None]
+    shadow2 = ray_mod.RayBatch(
+        origin=torch.where(e3, env_rays.origin, shadow_b.origin),
+        dir=torch.where(e3, env_rays.dir, shadow_b.dir),
+        t_max=torch.where(arm_env, env_rays.t_max, shadow_b.t_max))
+    occluded_b = occlude_fn(mask_dead(shadow2))
+
+    if n_area > 0:
+        weight_b = _power2_heuristic(pdf_b, pdf_light_b)
+        # Delta-sampled directions are excluded from the NEE BSDF arm.
+        valid_b = (arm_area & hit_light & ~is_delta_b & ~occluded_b
+                   & (pdf_b > 0.0) & (pdf_light_b > 0.0)
+                   & ((f_b[..., 0] > 0.0) | (f_b[..., 1] > 0.0)
+                      | (f_b[..., 2] > 0.0)))
+        contrib_b = f_b * li_b * (weight_b * vm.weak_recip(pdf_b))[..., None]
+        result = result + torch.where(valid_b[..., None], contrib_b, 0.0)
+
+    if has_env:
+        valid_e = arm_env & ~is_delta_b & ~occluded_b & (pdf_b > 0.0)
+        li_env = lt.eval_env(scene.env, wi_b)
+        contrib_e = f_b * li_env * (1.0 * vm.weak_recip(pdf_b))[..., None]
+        result = result + torch.where(valid_e[..., None], contrib_e, 0.0)
+
+    # 1 / light_pdf = n_lights.
+    return result * float(n_lights)

@@ -1,0 +1,211 @@
+"""Light tables: area lights and the environment light. Mirrors
+pbrs_tpu/lights/lights.py for quad area lights and none/const/gradient
+environments; delta lights, the dusk and image environments raise
+NotImplementedError until their slice is ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core import vecmath as vm
+from . import sample_shape as ss
+
+# Delta light kinds
+POINT = 0
+DISTANT = 1
+
+# Env light kinds
+ENV_NONE = 0
+ENV_CONST = 1
+ENV_GRADIENT = 2  # lerp(bottom, top, (y+1)/2)
+ENV_DUSK = 3
+ENV_IMAGE = 4
+
+
+def _to(obj, device):
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(device)
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+@dataclass
+class DeltaLights:
+    kind: torch.Tensor  # [D] int32
+    position: torch.Tensor  # [D,3]
+    color: torch.Tensor  # [D,3]
+    world_radius: torch.Tensor  # [] scalar
+    count: int = 0
+
+    def to(self, device):
+        return _to(self, device)
+
+
+@dataclass
+class AreaLights:
+    shape_kind: torch.Tensor  # [A] int32 (sample_shape kinds)
+    emit: torch.Tensor  # [A,3]
+    p0: torch.Tensor  # [A,3]
+    p1: torch.Tensor  # [A,3]
+    p2: torch.Tensor  # [A,3]
+    scalar: torch.Tensor  # [A]
+    count: int = 0
+    present_shapes: tuple = (ss.QUAD,)
+
+    def to(self, device):
+        return _to(self, device)
+
+
+@dataclass
+class EnvLight:
+    kind: int = ENV_NONE
+    color_a: torch.Tensor = None  # top / constant
+    color_b: torch.Tensor = None  # bottom
+
+    def to(self, device):
+        return _to(self, device)
+
+
+def _f3(x):
+    return torch.tensor(np.asarray(x, np.float32).reshape(3))
+
+
+def make_env_gradient(top, bottom) -> EnvLight:
+    return EnvLight(kind=ENV_GRADIENT, color_a=_f3(top), color_b=_f3(bottom))
+
+
+def make_env_const(color) -> EnvLight:
+    return EnvLight(kind=ENV_CONST, color_a=_f3(color),
+                    color_b=torch.zeros(3, dtype=torch.float32))
+
+
+def make_env_none() -> EnvLight:
+    return EnvLight(kind=ENV_NONE, color_a=torch.zeros(3, dtype=torch.float32),
+                    color_b=torch.zeros(3, dtype=torch.float32))
+
+
+def make_env_dusk(*a, **k):
+    raise NotImplementedError(
+        "pbrs_tpu.lights.lights.make_env_dusk is not ported to "
+        "pbrs_tpu_torch yet")
+
+
+def make_env_image(*a, **k):
+    raise NotImplementedError(
+        "pbrs_tpu.lights.lights.make_env_image is not ported to "
+        "pbrs_tpu_torch yet")
+
+
+def eval_env(env: EnvLight, directions):
+    """Environment radiance along ray directions [N,3] -> [N,3]."""
+    if env.kind == ENV_NONE:
+        return torch.zeros_like(directions)
+    if env.kind == ENV_CONST:
+        return env.color_a.expand_as(directions)
+    if env.kind == ENV_GRADIENT:
+        d = vm.normalize(directions)
+        y = (d[..., 1:2] + 1.0) * 0.5
+        return env.color_a * y + env.color_b * (1.0 - y)
+    raise NotImplementedError(
+        f"pbrs_tpu.lights.lights.eval_env kind {env.kind} is not ported to "
+        "pbrs_tpu_torch yet")
+
+
+def area_rows(lights: AreaLights, idx):
+    """Gather (shape_kind, emit, params) of the chosen area lights."""
+    i = idx.to(torch.int64)
+    params = {"p0": lights.p0[i], "p1": lights.p1[i], "p2": lights.p2[i],
+              "scalar": lights.scalar[i]}
+    return lights.shape_kind[i], lights.emit[i], params
+
+
+def sample_area(lights: AreaLights, idx, hit_pos, u2):
+    """Sample incident radiance from a chosen area light.
+    Returns (radiance [N,3], wi unit [N,3], pdf [N], point_on_light [N,3])."""
+    kind, emit, params = area_rows(lights, idx)
+    pt, n_l = ss.sample_towards(kind, params, hit_pos, u2,
+                                present=lights.present_shapes)
+    wi = vm.normalize(pt - hit_pos)
+    # One-sided emission: radiance only if the light's front faces us.
+    facing = vm.dot(n_l, -wi) > 0.0
+    radiance = torch.where(facing[..., None], emit, 0.0)
+    pdf = ss.pdf_at(kind, params, hit_pos, wi, present=lights.present_shapes)
+    return radiance, wi, pdf, pt
+
+
+def area_radiance_to(lights: AreaLights, idx, hit_pos, wi):
+    """BSDF-sampled MIS arm: does direction wi hit the chosen light, and at
+    what pdf? Returns (radiance [N,3], pdf [N], hit_mask [N], point [N,3])."""
+    kind, emit, params = area_rows(lights, idx)
+    wi_n = vm.normalize(wi)
+    ok, t, _ = ss.intersect_shape(kind, params, hit_pos, wi_n,
+                                  present=lights.present_shapes)
+    pdf = ss.pdf_at(kind, params, hit_pos, wi_n,
+                    present=lights.present_shapes)
+    pt = hit_pos + t[..., None] * wi_n
+    radiance = torch.where(ok[..., None], emit, 0.0)
+    return radiance, pdf, ok, pt
+
+
+class LightsBuilder:
+    """Host-side accumulator for scene lights."""
+
+    def __init__(self):
+        self.area = []  # (shape_kind, emit, p0, p1, p2, scalar)
+        self.env = make_env_none()
+
+    def _not_ported(self, name):
+        raise NotImplementedError(
+            f"pbrs_tpu.lights.lights.LightsBuilder.{name} is not ported to "
+            "pbrs_tpu_torch yet")
+
+    def add_point(self, *a, **k):
+        self._not_ported("add_point")
+
+    def add_distant(self, *a, **k):
+        self._not_ported("add_distant")
+
+    def add_area_sphere(self, *a, **k):
+        self._not_ported("add_area_sphere")
+
+    def add_area_disk(self, *a, **k):
+        self._not_ported("add_area_disk")
+
+    def add_area_triangle(self, *a, **k):
+        self._not_ported("add_area_triangle")
+
+    def add_area_quad(self, emit, origin, edge_u, edge_v):
+        self.area.append((ss.QUAD, emit, origin, edge_u, edge_v, 0.0))
+
+    def build(self):
+        t = torch.from_numpy
+        # No delta light is ported, so this is always the empty table
+        # (pbrs_tpu.lights.lights.empty_delta, world radius 1).
+        delta = DeltaLights(
+            kind=torch.zeros(1, dtype=torch.int32),
+            position=torch.zeros(1, 3), color=torch.zeros(1, 3),
+            world_radius=torch.tensor(1.0), count=0)
+        if self.area:
+            f3 = lambda i: np.stack(  # noqa: E731
+                [np.asarray(a[i], np.float32).reshape(3) for a in self.area])
+            kind = np.asarray([a[0] for a in self.area], np.int32)
+            area = AreaLights(
+                shape_kind=t(kind), emit=t(f3(1)), p0=t(f3(2)),
+                p1=t(f3(3)), p2=t(f3(4)),
+                scalar=t(np.asarray([float(a[5]) for a in self.area],
+                                    np.float32)),
+                count=len(self.area),
+                present_shapes=tuple(sorted({int(k) for k in kind})))
+        else:
+            area = AreaLights(
+                shape_kind=torch.zeros(1, dtype=torch.int32),
+                emit=torch.zeros(1, 3), p0=torch.zeros(1, 3),
+                p1=torch.tensor([[1.0, 0.0, 0.0]]),
+                p2=torch.tensor([[0.0, 1.0, 0.0]]), scalar=torch.ones(1),
+                count=0)
+        return delta, area, self.env
