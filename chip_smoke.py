@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from pbrs_tpu_torch/csrc/, checks each
-against its plain PyTorch version on the card, renders the golden Cornell
-checksum through both kernels, drives the main path (Cornell 1024^2,
-depth 8, msaa 2, PCG seed 0) through the port's fused, general and plain
-routes, and runs the CLI. Every phase prints one line; a failing phase
-raises, so the script exits non-zero. There is no CPU path: without a CUDA
-device the script fails. The last line is
+Builds the port's CUDA kernels from pbrs_tpu_torch/csrc/ and prints what
+ptxas reports for them, checks each kernel against its plain PyTorch
+version on the card, renders golden checksums through the kernels, drives
+the two main paths through the port's routes -- Cornell 1024^2, depth 8,
+msaa 2 (fused diffuse kernel K2) and plates 1024^2, depth 5, msaa 2 (fused
+single-lobe kernel K3), PCG seed 0 -- and runs the CLI. Every phase prints
+one line or more; a failing phase raises, so the script exits non-zero.
+There is no CPU path: without a CUDA device the script fails. The line
+before the last is {"kernels": [...]}, one entry per kernel with its
+launches on its main path, error against its plain version, device time,
+plain time and bound; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -26,9 +30,18 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_REL_TOL = 2e-3  # tests/test_golden.py REL_TOL
 ATOL, RTOL = 2e-5, 1e-4  # tests/test_fused.py:38
+K3_ATOL, K3_RTOL = 3e-5, 2e-4  # tests/test_fused_single_lobe.py:73
 N_RAYS = 1 << 20
 SIZE, DEPTH, MSAA = 1024, 8, 2  # bench.py workload
+PLATES_DEPTH = 5  # benchmarks.py plates_mis_microfacet_1024
 WARMUP, REPS, SAMPLES = 1, 3, 4
+# Float operations per primitive of one bank sweep (sphere, quad, triangle,
+# disk), counted from csrc/trace_flat.cuh: each add, sub, mul, div, sqrt,
+# min/max and comparison is one.
+SWEEP_OPS = (58, 64, 91, 34)
+# Published H100 SXM peaks: FP32 outside the tensor cores and HBM3
+# bandwidth.
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 
 def cuda_ms(fn, iters):
@@ -107,8 +120,26 @@ def phase_build():
     t0 = time.time()
     kernels.lib()
     print(f"phase 1 build: {time.time() - t0:.2f} s "
-          f"({'cached' if cached else 'nvcc'}) -> "
+          f"({'cached' if cached else 'nvcc, one process per source'}) -> "
           f"{os.path.relpath(kernels.library_path(), REPO)}")
+    log = kernels.ptxas_log_path()
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if line.startswith("==") or "registers" in line or "spill" in line:
+                print(f"phase 1 ptxas: {line.strip()}")
+
+
+def bound(bytes_moved, ops):
+    """(bound ms, what binds): the larger of bytes over the card's memory
+    rate and operations over its FP32 rate."""
+    t_bytes = bytes_moved / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sweep_ops(counts):
+    """Operations of one full sweep over a bank with these family counts."""
+    return sum(c * o for c, o in zip(counts, SWEEP_OPS))
 
 
 def phase_trace(dev, rng):
@@ -146,8 +177,14 @@ def phase_trace(dev, rng):
             report["ms"] = cuda_ms(lambda: tk.trace(bank, counts, rays), 20)
             report["plain_ms"] = cuda_ms(
                 lambda: tk.trace_reference(bank, counts, rays), 3)
+            # Every closest-hit ray sweeps the whole bank; 7 floats in, t
+            # and id out per ray, the bank read once.
+            report["bound_ms"], report["bound_by"] = bound(
+                N_RAYS * (7 * 4 + 8) + bank.numel() * 4,
+                N_RAYS * sweep_ops(counts))
     print(f"phase 2 K1 time at {N_RAYS} rays (Cornell): kernel "
-          f"{report['ms']:.4f} ms, plain {report['plain_ms']:.4f} ms")
+          f"{report['ms']:.4f} ms, plain {report['plain_ms']:.4f} ms, bound "
+          f"{report['bound_ms']:.4f} ms ({report['bound_by']})")
     return report
 
 
@@ -239,8 +276,17 @@ def phase_bounce(dev):
         lambda: fk.bounce(tab, fin, alive, pix, samp, cnt, **kw), 20)
     report["plain_ms"] = cuda_ms(
         lambda: fk.bounce_reference(tab, fin, alive, pix, samp, **kw), 3)
-    print(f"phase 3 K2 time at {fin.shape[1]} lanes (Cornell bounce 0): "
-          f"kernel {report['ms']:.4f} ms, plain {report['plain_ms']:.4f} ms")
+    n = fin.shape[1]
+    # 9 floats + 3 ints in, 12 floats + 1 int out per lane, tables once;
+    # operations: the closest-hit sweep of every live lane (shadow sweeps
+    # and shading not counted, so this bound is a floor).
+    report["bound_ms"], report["bound_by"] = bound(
+        n * (9 * 4 + 3 * 4 + 12 * 4 + 4)
+        + 4 * (tab.bank.numel() + tab.mats.numel() + tab.lights.numel()),
+        int((alive > 0).sum()) * sweep_ops(tab.counts))
+    print(f"phase 3 K2 time at {n} lanes (Cornell bounce 0): "
+          f"kernel {report['ms']:.4f} ms, plain {report['plain_ms']:.4f} ms, "
+          f"bound {report['bound_ms']:.4f} ms ({report['bound_by']})")
     return report
 
 
@@ -265,18 +311,18 @@ def phase_golden(dev):
             raise AssertionError(f"golden checksum via {name} drifted")
 
 
-def run_main_path(scene, route, pix):
-    """bench.py's timing loop: 1 warm-up sample, then REPS x SAMPLES."""
+def run_main_path(scene, route, pix, depth=DEPTH, reps=REPS):
+    """bench.py's timing loop: 1 warm-up sample, then reps x SAMPLES."""
     from pbrs_tpu_torch import render
     from pbrs_tpu_torch.core import sampler as smp
 
-    name, step = render.make_integrator(scene, smp.PCGSampler(0), DEPTH, MSAA,
+    name, step = render.make_integrator(scene, smp.PCGSampler(0), depth, MSAA,
                                         route)
     for s in range(WARMUP):
         step(pix, s)
     torch.cuda.synchronize()
     rates, walls, checksum = [], [], 0.0
-    for rep in range(REPS):
+    for rep in range(reps):
         torch.cuda.synchronize()
         t0 = time.time()
         rays = 0
@@ -291,8 +337,8 @@ def run_main_path(scene, route, pix):
         dt = time.time() - t0
         rates.append(rays / dt / 1e6)
         walls.append(dt / SAMPLES)
-    med = sorted(rates)[REPS // 2]
-    return name, med, sorted(walls)[REPS // 2], checksum
+    med = sorted(rates)[reps // 2]
+    return name, med, sorted(walls)[reps // 2], checksum
 
 
 def phase_main(dev, smi):
@@ -342,6 +388,278 @@ def phase_cli():
         raise AssertionError("the CLI render is not a finite, lit image")
 
 
+# ---------------------- K3: the fused single-lobe bounce ---------------------
+
+
+def _view(b, size, fov, eye, look):
+    from pbrs_tpu_torch.geometry import camera as cam_mod
+
+    b.camera = cam_mod.looking_at(cam_mod.make_camera((size, size), fov), eye,
+                                  look, (0, 1, 0))
+    return b.build()
+
+
+def zoo_scene(size):
+    """Every single-lobe kind, point + distant lights, a quad light, a blue
+    sky, a triangle and a disk (tests/test_fused_single_lobe.py:18-45)."""
+    from pbrs_tpu_torch.scene import presets
+    from pbrs_tpu_torch.scene.buffers import SceneBuilder
+
+    b = SceneBuilder()
+    g, m = b.geometry, b.materials
+    g.add_quad((-12, 0, -12), (24, 0, 0), (0, 0, 24),
+               m.add_lambertian((0.6, 0.55, 0.5)))
+    g.add_sphere((-4.5, 1, 0), 1.0,
+                 m.add_metal(presets.GOLD[0], presets.GOLD[1], 0.2))
+    g.add_sphere((-1.5, 1, 0), 1.0, m.add_glossy((0.8, 0.8, 0.9), 0.05))
+    g.add_sphere((1.5, 1, 0), 1.0, m.add_mirror((0.95, 0.95, 0.95)))
+    g.add_sphere((4.5, 1, 0), 1.0, m.add_dielectric(1.5))
+    red = m.add_lambertian((0.7, 0.2, 0.2))
+    g.add_triangle((-3, 0.01, -4), (0, 0.01, -2), (-1.5, 2.5, -3), red)
+    g.add_disk((2.5, 1.2, -3.5), (0, 0.3, -1), (1.2, 0, 0), red)
+    light_c = (6.0, 6.0, 6.0)
+    g.add_quad((-2, 7, -2), (4, 0, 0), (0, 0, 4), m.add_diffuse_light(light_c))
+    b.lights.add_area_quad(light_c, (-2, 7, -2), (4, 0, 0), (0, 0, 4))
+    b.lights.add_point((6, 5, -6), (40, 35, 30))
+    b.lights.add_distant((0.3, -1.0, 0.2), (0.5, 0.5, 0.55))
+    b.lights.env = presets.BLUE_SKY
+    return _view(b, size, 45.0, (0, 4, -14), (0, 1.5, 0))
+
+
+def shaped_lights_scene(size):
+    """Sphere, disk and triangle area lights over glossy and Lambert
+    geometry (tests/test_fused_single_lobe.py:92-119)."""
+    from pbrs_tpu_torch.scene.buffers import SceneBuilder
+
+    b = SceneBuilder()
+    g, m, lights = b.geometry, b.materials, b.lights
+    g.add_quad((-12, 0, -12), (24, 0, 0), (0, 0, 24),
+               m.add_lambertian((0.55, 0.55, 0.6)))
+    g.add_sphere((-2, 1, 0), 1.0, m.add_glossy((0.85, 0.8, 0.7), 0.03))
+    g.add_sphere((2, 1, 0), 1.0, m.add_lambertian((0.3, 0.5, 0.7)))
+    c1, c2, c3 = (8.0, 7.0, 6.0), (5.0, 6.0, 8.0), (7.0, 7.0, 5.0)
+    g.add_sphere((-4, 5, -3), 0.8, m.add_diffuse_light(c1))
+    lights.add_area_sphere(c1, (-4, 5, -3), 0.8)
+    g.add_disk((4, 6, -2), (0, -1, 0.2), (1.5, 0, 0), m.add_diffuse_light(c2))
+    lights.add_area_disk(c2, (4, 6, -2), (0, -1, 0.2), (1.5, 0, 0))
+    g.add_triangle((-1, 7, 2), (1, 7, 2), (0, 7, 4), m.add_diffuse_light(c3))
+    lights.add_area_triangle(c3, (-1, 7, 2), (1, 7, 2), (0, 7, 4))
+    return _view(b, size, 45.0, (0, 4, -12), (0, 1.5, 0))
+
+
+def plastic_scene(size):
+    """Two-lobe mixtures: plastic and default uber
+    (tests/test_fused_single_lobe.py:129-146)."""
+    from pbrs_tpu_torch.scene import presets
+    from pbrs_tpu_torch.scene.buffers import SceneBuilder
+
+    b = SceneBuilder()
+    g, m = b.geometry, b.materials
+    g.add_quad((-12, 0, -12), (24, 0, 0), (0, 0, 24),
+               m.add_lambertian((0.6, 0.6, 0.55)))
+    g.add_sphere((-2, 1, 0), 1.0,
+                 m.add_plastic((0.5, 0.15, 0.12), (0.7, 0.7, 0.7), 0.08))
+    g.add_sphere((2, 1, 0), 1.0, m.add_uber((0.2, 0.35, 0.55),
+                                            (0.5, 0.5, 0.5), roughness=0.15))
+    light_c = (9.0, 9.0, 9.0)
+    g.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4), m.add_diffuse_light(light_c))
+    b.lights.add_area_quad(light_c, (-2, 6, -2), (4, 0, 0), (0, 0, 4))
+    b.lights.env = presets.BLUE_SKY
+    return _view(b, size, 45.0, (0, 4, -10), (0, 1, 0))
+
+
+def textured_scene(size):
+    """Checker floor, Perlin-marble and solid-texture spheres
+    (tests/test_fused_single_lobe.py:225-245)."""
+    from pbrs_tpu_torch.scene import presets
+    from pbrs_tpu_torch.scene.buffers import SceneBuilder
+
+    b = SceneBuilder()
+    g, m, t = b.geometry, b.materials, b.textures
+    checker = t.add_checker((0.8, 0.2, 0.2), (0.9, 0.9, 0.85))
+    perlin = t.add_perlin(2.0)
+    solid = t.add_solid((0.2, 0.6, 0.3))
+    g.add_quad((-12, 0, -12), (24, 0, 0), (0, 0, 24),
+               m.add_matte(tex_id=checker))
+    g.add_sphere((-1.5, 1, 0), 1.0, m.add_matte(tex_id=perlin))
+    g.add_sphere((1.5, 1, 0), 1.0, m.add_matte(tex_id=solid))
+    light_c = (6.0, 6.0, 6.0)
+    g.add_quad((-2, 7, -2), (4, 0, 0), (0, 0, 4), m.add_diffuse_light(light_c))
+    b.lights.add_area_quad(light_c, (-2, 7, -2), (4, 0, 0), (0, 0, 4))
+    b.lights.env = presets.BLUE_SKY
+    return _view(b, size, 45.0, (0, 3, -10), (0, 1, 0))
+
+
+def preset_at(name, w, h=None):
+    from pbrs_tpu_torch import cli
+    from pbrs_tpu_torch.scene import presets
+
+    return cli.with_resolution(presets.PRESETS[name](), w, h or w)
+
+
+def k3_inputs(dev, scene, bounce):
+    """The K3 tables and the bounce-`bounce` input planes of a scene, reached
+    through the plain version from sample 0's camera rays."""
+    from pbrs_tpu_torch.accel import fused_single_lobe as fsl
+    from pbrs_tpu_torch.core import sampler as smp
+    from pbrs_tpu_torch.integrators import wavefront
+
+    scene = scene.to(dev)
+    if not fsl.scene_supports_single_lobe(scene):
+        raise AssertionError("a K3 test scene is not single-lobe eligible")
+    tab = fsl.SingleLobeTables.from_scene(scene)
+    n = scene.camera.width * scene.camera.height
+    pix = torch.arange(n, dtype=torch.int32, device=dev)
+    samp = torch.zeros(n, dtype=torch.int32, device=dev)
+    rays = wavefront.camera_rays(scene, smp.PCGSampler(0), pix, 0, MSAA)
+    fin = torch.cat([rays.origin.T, rays.dir.T,
+                     torch.ones(3, n, device=dev)]).contiguous()
+    alive = torch.ones(n, dtype=torch.int32, device=dev)
+    spec = torch.zeros(n, dtype=torch.int32, device=dev)
+    for b in range(bounce + 1):
+        kw = dict(seed=0, bounce=b, bounce_is_first=b == 0, rr_active=b > 3)
+        if b == bounce:
+            return tab, (fin, alive, spec, pix, samp), kw
+        fout, alive, spec, _ = fsl.bounce2_reference(tab, fin, alive, spec,
+                                                     pix, samp, **kw)
+        fin = fout[3:].contiguous()
+
+
+def k3_parity(dev, label, scene, bounce, report):
+    from pbrs_tpu_torch.accel import fused_single_lobe as fsl
+
+    tab, lanes, kw = k3_inputs(dev, scene, bounce)
+    fin, alive_in = lanes[0], lanes[1]
+    cnt_k = torch.zeros(1, dtype=torch.int64, device=dev)
+    out_k, alive_k, spec_k = fsl.bounce2(tab, *lanes, cnt_k, **kw)
+    out_p, alive_p, spec_p, cnt_p = fsl.bounce2_reference(tab, *lanes, **kw)
+    torch.cuda.synchronize()
+    n = fin.shape[1]
+    close = torch.isclose(out_k, out_p, atol=K3_ATOL, rtol=K3_RTOL).all(dim=0)
+    lane_bad = int((~close).sum())
+    alive_bad = int((alive_k != alive_p).sum()) + int((spec_k != spec_p).sum())
+    exact_bad = int((out_k != out_p).any(dim=0).sum())
+    err = float((out_k - out_p).abs().max())
+    report["max_abs_err"] = max(report["max_abs_err"], err)
+    print(f"phase 7 K3 {label} bounce {bounce}: {n} lanes, "
+          f"{int((alive_in > 0).sum())} alive; outside atol {K3_ATOL} rtol "
+          f"{K3_RTOL}: {lane_bad}; alive/spec differ {alive_bad}; not "
+          f"bit-equal {exact_bad}; max |d| {err:.3g}; rays kernel "
+          f"{int(cnt_k)} plain {int(cnt_p)}")
+    if lane_bad or alive_bad or int(cnt_k) != int(cnt_p):
+        raise AssertionError(f"K3 disagrees with its plain version on "
+                             f"{label} at bounce {bounce}")
+    return tab, lanes, kw
+
+
+def phase_single_lobe(dev):
+    """K3 vs its plain version: plates at 1024^2 (the main path's shape) at
+    bounces 0 and 2, then six scenes at 256^2 that take K3's other
+    branches; K3's and the plain version's device time at plates bounce
+    0."""
+    from pbrs_tpu_torch.accel import fused_single_lobe as fsl
+
+    report = {"max_abs_err": 0.0}
+    plates = preset_at("plates", SIZE)
+    tab, lanes, kw = k3_parity(dev, "plates", plates, 0, report)
+    k3_parity(dev, "plates", plates, 2, report)
+    for label, scene in (("zoo", zoo_scene(256)),
+                         ("plastic/uber", plastic_scene(256)),
+                         ("textured", textured_scene(256)),
+                         ("shaped lights", shaped_lights_scene(256)),
+                         ("env_mapped", preset_at("env_mapped", 256)),
+                         ("mixed_spheres", preset_at("mixed_spheres", 256))):
+        k3_parity(dev, label, scene, 0, report)
+    cnt = torch.zeros(1, dtype=torch.int64, device=dev)
+    report["ms"] = cuda_ms(lambda: fsl.bounce2(tab, *lanes, cnt, **kw), 20)
+    report["plain_ms"] = cuda_ms(
+        lambda: fsl.bounce2_reference(tab, *lanes, **kw), 3)
+    n = lanes[0].shape[1]
+    # 9 floats + 4 ints in, 12 floats + 2 ints out per lane, tables once;
+    # operations: the closest-hit sweep of every live lane (shadow sweeps
+    # and shading not counted, so this bound is a floor).
+    tables = sum(t.numel() for t in (tab.bank, tab.mats, tab.texs,
+                                     tab.lights, tab.delta, tab.env))
+    report["bound_ms"], report["bound_by"] = bound(
+        n * (9 * 4 + 4 * 4 + 12 * 4 + 2 * 4) + 4 * tables,
+        int((lanes[1] > 0).sum()) * sweep_ops(tab.counts))
+    print(f"phase 7 K3 time at {n} lanes (plates bounce 0): kernel "
+          f"{report['ms']:.4f} ms, plain {report['plain_ms']:.4f} ms, bound "
+          f"{report['bound_ms']:.4f} ms ({report['bound_by']})")
+    return report
+
+
+def phase_single_lobe_golden(dev):
+    """tests/test_golden.py's 48^2 checksums of the single-lobe scenes
+    through K3 (route auto) and through the general path (K1)."""
+    from pbrs_tpu_torch import render
+    from pbrs_tpu_torch.core import sampler as smp
+
+    with open(os.path.join(REPO, "tests", "golden_checksums.json")) as f:
+        golden = json.load(f)
+    for key, name, depth in (("plates", "plates", 4),
+                             ("two_perlin", "two_perlin_spheres", 4),
+                             ("env_mapped", "env_mapped", 4),
+                             ("mixed_spheres", "mixed_spheres", 3)):
+        scene = preset_at(name, 48).to(dev)
+        pix = torch.arange(48 * 48, dtype=torch.int32, device=dev)
+        for route in ("auto", "general"):
+            got_name, fn = render.make_integrator(
+                scene, smp.PCGSampler(0), depth, 2, route)
+            got = sum(float(fn(pix, s)[0].sum()) for s in range(2))
+            rel = abs(got - golden[key]) / abs(golden[key])
+            print(f"phase 8 golden {key} via {got_name}: {got:.6f} vs "
+                  f"{golden[key]:.6f} (rel {rel:.2e})")
+            if route == "auto" and got_name != "fused_single_lobe":
+                raise AssertionError(f"{key} did not take K3")
+            if rel > GOLDEN_REL_TOL:
+                raise AssertionError(f"golden {key} via {got_name} drifted")
+
+
+def phase_plates_main(dev, smi):
+    """The slice's main path: plates 1024^2, depth 5, msaa 2, PCG seed 0,
+    through the auto (K3), general (K1) and plain routes."""
+    from pbrs_tpu_torch.accel import fused_single_lobe as fsl
+    from pbrs_tpu_torch.accel import trace_kernel as tk
+
+    scene = preset_at("plates", SIZE).to(dev)
+    pix = torch.arange(SIZE * SIZE, dtype=torch.int32, device=dev)
+    results = {}
+    tk.LAUNCHES = 0
+    fsl.LAUNCHES = 0
+    for route in ("auto", "general"):
+        results[route] = run_main_path(scene, route, pix, PLATES_DEPTH)
+    launches = {"trace_flat": tk.LAUNCHES, "fused_single_lobe": fsl.LAUNCHES}
+    results["plain"] = run_main_path(scene, "plain", pix, PLATES_DEPTH,
+                                     reps=1)
+    for route, (name, mrays, wall, checksum) in results.items():
+        print(f"phase 9 main path {route} -> {name}: plates {SIZE}^2 depth "
+              f"{PLATES_DEPTH} msaa {MSAA}: median {mrays:.3f} Mrays/s, "
+              f"{wall * 1e3:.2f} ms/sample, checksum {checksum:.6e} "
+              f"[{smi}]")
+    print(f"phase 9 launches: K3 fused_single_lobe "
+          f"{launches['fused_single_lobe']}, K1 trace_flat "
+          f"{launches['trace_flat']}")
+    if results["auto"][0] != "fused_single_lobe":
+        raise AssertionError("the plates main path did not take K3")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    sums = [r[3] for r in results.values()]
+    if max(sums) - min(sums) > GOLDEN_REL_TOL * abs(sums[0]):
+        raise AssertionError(f"routes disagree on the checksum: {sums}")
+    return launches
+
+
+def kernel_entry(name, source, replaces, launches, report):
+    return {"name": name, "route": "cuda",
+            "source": f"pbrs_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches, "max_abs_err": report["max_abs_err"],
+            "ms": report["ms"], "plain_ms": report["plain_ms"],
+            "bound_ms": report["bound_ms"], "bound_by": report["bound_by"],
+            # No single PyTorch call computes any of these kernels.
+            "library_ms": None}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -355,18 +673,19 @@ def main():
     phase_golden(dev)
     launches = phase_main(dev, smi)
     phase_cli()
+    k3 = phase_single_lobe(dev)
+    phase_single_lobe_golden(dev)
+    k3_launches = phase_plates_main(dev, smi)
     kernels = [
-        {"name": "trace_flat", "route": "cuda",
-         "source": "pbrs_tpu_torch/csrc/trace_flat.cu",
-         "replaces": "pbrs_tpu/accel/trace_pallas.py:127",
-         "launches": launches["trace_flat"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "fused_bounce", "route": "cuda",
-         "source": "pbrs_tpu_torch/csrc/fused_bounce.cu",
-         "replaces": "pbrs_tpu/accel/fused_kernel.py:329",
-         "launches": launches["fused_bounce"],
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"]},
+        kernel_entry("trace_flat", "trace_flat.cu",
+                     "pbrs_tpu/accel/trace_pallas.py:127",
+                     launches["trace_flat"], k1),
+        kernel_entry("fused_bounce", "fused_bounce.cu",
+                     "pbrs_tpu/accel/fused_kernel.py:329",
+                     launches["fused_bounce"], k2),
+        kernel_entry("fused_single_lobe", "fused_single_lobe.cu",
+                     "pbrs_tpu/accel/fused_single_lobe.py:506",
+                     k3_launches["fused_single_lobe"], k3),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

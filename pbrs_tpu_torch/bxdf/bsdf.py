@@ -1,5 +1,5 @@
 """Multi-lobe BSDF aggregation in the world frame. Mirrors
-pbrs_tpu/bxdf/bsdf.py (sample_specular is not ported yet).
+pbrs_tpu/bxdf/bsdf.py.
 
 The lobe to sample is picked uniformly among the active slots; the pdf is
 the mixture density sum(pdf_l) / n_active.
@@ -85,3 +85,23 @@ def sample_bsdf(lobes: lb.Lobes, frame: Frame, wo_world, u2):
     f = torch.where(none_active[..., None], 0.0, f)
     pdf = torch.where(none_active, 0.0, pdf)
     return f, local_to_world(frame, wi), pdf, is_delta
+
+
+def sample_specular(lobes: lb.Lobes, frame: Frame, wo_world):
+    """Sample the first delta lobe, if any: (f, wi_world, pmf,
+    has_specular)."""
+    wo = world_to_local(frame, wo_world)
+    found = torch.zeros(wo.shape[:-1], dtype=torch.bool, device=wo.device)
+    f_out = torch.zeros_like(wo)
+    wi_out = torch.zeros_like(wo)
+    pmf_out = torch.zeros_like(wo[..., 0])
+    zeros2 = torch.zeros_like(wo[..., :2])
+    for l in range(lobes.num_slots):
+        this = lb.slot(lobes, l)
+        is_spec = lb.is_delta_kind(this.kind) & ~found
+        f, wi, p, _ = lb.sample_lobe(this, wo, zeros2)
+        f_out = torch.where(is_spec[..., None], f, f_out)
+        wi_out = torch.where(is_spec[..., None], wi, wi_out)
+        pmf_out = torch.where(is_spec, p, pmf_out)
+        found = found | lb.is_delta_kind(this.kind)
+    return f_out, local_to_world(frame, wi_out), pmf_out, found

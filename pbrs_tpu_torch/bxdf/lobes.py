@@ -1,7 +1,10 @@
 """BSDF lobe models with branchless kind dispatch. Mirrors
-pbrs_tpu/bxdf/lobes.py for the LAMBERT kind; every other kind raises
-NotImplementedError until its slice is ported.
+pbrs_tpu/bxdf/lobes.py for the LAMBERT, MICROFACET, SPEC_MIRROR,
+SPEC_DIELECTRIC and SPEC_TRANSMIT kinds; OREN_NAYAR, FRESNEL_BLEND and
+FOURIER raise NotImplementedError until their slice is ported.
 
+A lobe is a row of SoA parameter tensors tagged with an integer kind;
+eval/pdf/sample compute every model the scene can produce and mask-select.
 Directions are unit vectors in the local shading frame (+z = normal).
 """
 
@@ -13,6 +16,8 @@ from dataclasses import dataclass
 import torch
 
 from ..core import vecmath as vm
+from . import fresnel as fr
+from . import microfacet as mf
 
 NONE = 0
 LAMBERT = 1
@@ -25,16 +30,26 @@ FRESNEL_BLEND = 7
 FOURIER = 8
 
 INV_PI = 1.0 / math.pi
-PORTED_KINDS = (LAMBERT,)
+PORTED_KINDS = (LAMBERT, MICROFACET, SPEC_MIRROR, SPEC_DIELECTRIC,
+                SPEC_TRANSMIT)
+FIELDS = ("kind", "albedo", "specular", "alpha", "distrib", "fr_kind", "eta",
+          "eta_t", "k")
 
 
 @dataclass
 class Lobes:
-    """Per-hit lobe table: kind [..., L], albedo [..., L, 3]. present_kinds
-    is the static set of kinds the scene can produce."""
+    """Per-hit lobe table: every field is [..., L] or [..., L, C].
+    present_kinds is the static set of kinds the scene can produce."""
 
     kind: torch.Tensor
     albedo: torch.Tensor
+    specular: torch.Tensor  # FresnelBlend Rs
+    alpha: torch.Tensor  # [..., L, 2] microfacet alphas
+    distrib: torch.Tensor
+    fr_kind: torch.Tensor
+    eta: torch.Tensor  # [..., L, 2] dielectric (front, back)
+    eta_t: torch.Tensor  # [..., L, 3] conductor eta
+    k: torch.Tensor  # [..., L, 3] conductor absorption
     present_kinds: tuple = (LAMBERT,)
 
     @property
@@ -55,13 +70,20 @@ def check_ported(present_kinds):
 
 def slot(lobes: Lobes, l) -> Lobes:
     """View of slot l; `l` is an int or a per-lane int tensor."""
+    nd = lobes.kind.dim()
     if isinstance(l, int):
-        return Lobes(lobes.kind[..., l], lobes.albedo[..., l, :],
-                     lobes.present_kinds)
-    idx = l.to(torch.int64)[:, None]
-    kind = lobes.kind.gather(1, idx)[:, 0]
-    albedo = lobes.albedo.gather(1, idx[..., None].expand(-1, 1, 3))[:, 0]
-    return Lobes(kind, albedo, lobes.present_kinds)
+        def pick(a):
+            return a[..., l, :] if a.dim() > nd else a[..., l]
+    else:
+        idx = l.to(torch.int64)[:, None]
+
+        def pick(a):
+            if a.dim() > nd:
+                return a.gather(1, idx[..., None].expand(-1, 1, a.shape[-1])
+                                )[:, 0]
+            return a.gather(1, idx)[:, 0]
+    return Lobes(*(pick(getattr(lobes, f)) for f in FIELDS),
+                 present_kinds=lobes.present_kinds)
 
 
 def num_active(lobes: Lobes):
@@ -104,37 +126,145 @@ def cos_hemisphere_pdf(wi):
     return torch.abs(wi[..., 2]) * INV_PI
 
 
+# ------------------------------- eval --------------------------------------
+
+
+def _fresnel_of(lb: Lobes, cos_i):
+    return fr.eval_color(lb.fr_kind, cos_i, lb.eta[..., 0], lb.eta[..., 1],
+                         lb.eta_t, lb.k)
+
+
+def _microfacet_eval(lb, wo, wi):
+    aco = torch.abs(mf.cos_theta(wo))
+    aci = torch.abs(mf.cos_theta(wi))
+    mid = wo + wi
+    ok = vm.dot(mid, mid) > 1e-16
+    wh = vm.normalize(mid)
+    z_axis = torch.zeros_like(wh)
+    z_axis[..., 2] = 1.0
+    wh = vm.face_forward(wh, z_axis)
+    f_color = _fresnel_of(lb, vm.dot(wi, wh))
+    ax, ay = lb.alpha[..., 0], lb.alpha[..., 1]
+    val = (lb.albedo
+           * (mf.d(lb.distrib, ax, ay, wh)
+              * mf.g(lb.distrib, ax, ay, wo, wi))[..., None]
+           * f_color * vm.weak_recip(4.0 * aco * aci)[..., None])
+    zero_mask = (~ok) | (aco == 0.0) | (aci == 0.0)
+    return torch.where(zero_mask[..., None], 0.0, val)
+
+
 def eval_lobe(lb: Lobes, wo, wi):
-    """f(wo, wi) for one lobe slot; reflection-only, so zero across the
-    horizon."""
+    """f(wo, wi) for one lobe slot; delta kinds evaluate to 0 and the
+    reflection-only kinds are zero across the horizon."""
     check_ported(lb.present_kinds)
+    k = lb.kind
     out = torch.zeros_like(lb.albedo)
     same = same_hemisphere(wo, wi)[..., None]
     if lb.has(LAMBERT):
-        out = torch.where((lb.kind[..., None] == LAMBERT) & same,
+        out = torch.where((k[..., None] == LAMBERT) & same,
                           lb.albedo * INV_PI, out)
+    if lb.has(MICROFACET):
+        out = torch.where((k[..., None] == MICROFACET) & same,
+                          _microfacet_eval(lb, wo, wi), out)
     return out
 
 
 def pdf_lobe(lb: Lobes, wo, wi):
+    """Sampling density of one lobe slot (0 for delta kinds)."""
     check_ported(lb.present_kinds)
-    out = torch.zeros(lb.kind.shape, dtype=torch.float32,
-                      device=lb.kind.device)
+    k = lb.kind
+    same = same_hemisphere(wo, wi)
+    out = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     if lb.has(LAMBERT):
-        p_cos = torch.where(same_hemisphere(wo, wi), cos_hemisphere_pdf(wi),
-                            torch.zeros_like(out))
-        out = torch.where(lb.kind == LAMBERT, p_cos, out)
+        p_cos = torch.where(same, cos_hemisphere_pdf(wi), 0.0)
+        out = torch.where(k == LAMBERT, p_cos, out)
+    if lb.has(MICROFACET):
+        mid = wo + wi
+        ok = vm.dot(mid, mid) > 1e-16
+        wh = vm.normalize(mid)
+        ax, ay = lb.alpha[..., 0], lb.alpha[..., 1]
+        p_mf = mf.pdf_wh(lb.distrib, ax, ay, wo, wh) * vm.weak_recip(
+            4.0 * vm.dot(wo, wh))
+        out = torch.where(k == MICROFACET, torch.where(same & ok, p_mf, 0.0),
+                          out)
     return torch.clamp_min(out, 0.0)
 
 
+# ------------------------------- sample ------------------------------------
+
+
+def _refract_local(wo, eta_front, eta_back):
+    """Refract wo across the local z interface -> (wi, tir)."""
+    entering = mf.cos_theta(wo) > 0.0
+    eta_i = torch.where(entering, eta_front, eta_back)
+    eta_t = torch.where(entering, eta_back, eta_front)
+    normal = torch.zeros_like(wo)
+    normal[..., 2] = torch.where(entering, 1.0, -1.0)
+    return vm.refract(normal, wo, eta_i / eta_t)
+
+
 def sample_lobe(lb: Lobes, wo, u2):
-    """Returns (f, wi, pdf, is_delta) for one lobe slot."""
+    """Sample an incident direction from one lobe slot: (f, wi, pdf, is_delta);
+    for delta kinds the pdf is the mass of the chosen branch."""
+    check_ported(lb.present_kinds)
+    k = lb.kind
+    v = u2[..., 1]
+    has = lb.has
+    k3 = k[..., None]
+
     wi = cos_sample_hemisphere(u2)
-    wi = wi * torch.where(wo[..., 2] < 0.0, -1.0, 1.0)[..., None]
+    wi = wi * torch.where(mf.cos_theta(wo) < 0.0, -1.0, 1.0)[..., None]
+    ax, ay = lb.alpha[..., 0], lb.alpha[..., 1]
+
+    if has(MICROFACET):
+        wh = mf.sample_wh(lb.distrib, ax, ay, wo, u2)
+        wi = torch.where(k3 == MICROFACET, vm.reflect(wh, wo), wi)
+    if has(SPEC_MIRROR, SPEC_DIELECTRIC):
+        wi_mirror = torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], dim=-1)
+        wi = torch.where(k3 == SPEC_MIRROR, wi_mirror, wi)
+    if has(SPEC_TRANSMIT, SPEC_DIELECTRIC):
+        wi_refr, tir = _refract_local(wo, lb.eta[..., 0], lb.eta[..., 1])
+        wi = torch.where(k3 == SPEC_TRANSMIT, wi_refr, wi)
+    if has(SPEC_DIELECTRIC):
+        # Reflect with probability R(wo), else refract.
+        r_coeff = fr.dielectric_refl(mf.cos_theta(wo), lb.eta[..., 0],
+                                     lb.eta[..., 1])
+        diel_reflect = v < r_coeff
+        wi_diel = torch.where(diel_reflect[..., None], wi_mirror, wi_refr)
+        wi = torch.where(k3 == SPEC_DIELECTRIC, wi_diel, wi)
+
     f = eval_lobe(lb, wo, wi)
     p = pdf_lobe(lb, wo, wi)
-    is_delta = is_delta_kind(lb.kind)
-    none = lb.kind == NONE
-    p = torch.where(none, 0.0, p)
-    f = torch.where(none[..., None], 0.0, f)
+    if has(MICROFACET):
+        # Microfacet samples below the horizon are rejected.
+        reject = (k == MICROFACET) & ~same_hemisphere(wo, wi)
+        f = torch.where(reject[..., None], 0.0, f)
+        p = torch.where(reject, 0.0, p)
+
+    is_delta = is_delta_kind(k)
+    if has(SPEC_MIRROR, SPEC_DIELECTRIC, SPEC_TRANSMIT):
+        aci = torch.clamp_min(torch.abs(mf.cos_theta(wi)), 0.0)
+        inv_aci = vm.weak_recip(aci)[..., None]
+        pmf = torch.ones(k.shape, dtype=torch.float32, device=k.device)
+        if has(SPEC_MIRROR):
+            f_mirror = _fresnel_of(lb, mf.cos_theta(wi)) * lb.albedo * inv_aci
+            f = torch.where(k3 == SPEC_MIRROR, f_mirror, f)
+        if has(SPEC_TRANSMIT, SPEC_DIELECTRIC):
+            r_at_wi = fr.dielectric_refl(mf.cos_theta(wi), lb.eta[..., 0],
+                                         lb.eta[..., 1])
+            f_refr = (1.0 - r_at_wi)[..., None] * lb.albedo * inv_aci
+            f_refr = torch.where(tir[..., None], 0.0, f_refr)
+            f = torch.where(k3 == SPEC_TRANSMIT, f_refr, f)
+        if has(SPEC_DIELECTRIC):
+            f_diel = torch.where(diel_reflect[..., None],
+                                 r_coeff[..., None] * inv_aci * lb.albedo,
+                                 f_refr)
+            f = torch.where(k3 == SPEC_DIELECTRIC, f_diel, f)
+            pmf = torch.where(k == SPEC_DIELECTRIC,
+                              torch.where(diel_reflect, r_coeff,
+                                          1.0 - r_coeff), pmf)
+        p = torch.where(is_delta, pmf, p)
+
+    p = torch.where(k == NONE, 0.0, p)
+    f = torch.where((k == NONE)[..., None], 0.0, f)
     return f, wi, p, is_delta

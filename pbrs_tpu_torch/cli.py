@@ -29,9 +29,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resolution", default=None, metavar="WxH",
                    help="override the scene camera resolution")
     p.add_argument("--output", default=None, help="output EXR/PNG path")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda when available, else "
-                        "cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                        "path without kernels)")
     return p
 
 
@@ -66,7 +66,10 @@ def main(argv=None) -> int:
     if args.resolution:
         w, h = (int(x) for x in args.resolution.lower().split("x"))
         scene = with_resolution(scene, w, h)
-    device = args.device or ("cuda" if torch.cuda.is_available() else "cpu")
+    device = args.device
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        sys.exit("pbrs_tpu_torch: no CUDA device; pass --device cpu to "
+                 "render on the CPU")
     spp = args.msaa * args.msaa
 
     t0 = time.time()

@@ -59,6 +59,36 @@ def face_forward(v, ref):
     return v * s[..., None]
 
 
+def reflect(normal, wi):
+    """Mirror wi about the (not necessarily unit) normal; the result lies
+    on wi's side of the normal."""
+    n2 = torch.clamp_min(dot(normal, normal), EPS)
+    perp = (dot(wi, normal) / n2)[..., None] * normal
+    parallel = wi - perp
+    return wi - 2.0 * parallel
+
+
+def refract(normal, wi, ni_over_no):
+    """Refract unit wi (acute with unit normal) across the interface:
+    (direction, total-internal-reflection mask); the mirror direction
+    where TIR occurs."""
+    cos_i = dot(wi, normal)
+    sin2_i = torch.clamp_min(1.0 - cos_i * cos_i, 0.0)
+    sin2_o = sin2_i * ni_over_no * ni_over_no
+    full = sin2_o >= 1.0
+    cos_o = safe_sqrt(1.0 - sin2_o)
+    transmitted = -ni_over_no[..., None] * wi + (
+        ni_over_no * cos_i - cos_o)[..., None] * normal
+    return (torch.where(full[..., None], reflect(normal, wi), transmitted),
+            full)
+
+
+def spherical_direction(sin_theta, cos_theta, phi):
+    """Unit vector at polar angle theta from +z, azimuth phi from +x."""
+    return vec3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
+                cos_theta)
+
+
 def make_coord_system(v):
     """Branchless orthonormal basis (Duff et al. 2017); v1 x v2 = v."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]

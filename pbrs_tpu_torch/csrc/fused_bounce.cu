@@ -22,61 +22,9 @@
 // lane exiting early with its pass-through outputs, and an exact traced-ray
 // count: a warp-shuffle + shared-memory block reduction and one 64-bit
 // atomicAdd per block, in place of the TPU's per-lane-average encoding.
-#include "trace_flat.cuh"
+#include "bounce_common.cuh"
 
 namespace pbrs {
-
-constexpr float SPAWN_EPS = (float)1e-3;  // geometry/ray.py SPAWN_EPS
-constexpr float INV_PI = (float)(1.0 / 3.141592653589793);
-constexpr float PI_4 = (float)(3.141592653589793 / 4.0);
-constexpr float PI_2 = (float)(3.141592653589793 / 2.0);
-constexpr float SHADOW_T = (float)(1.0 - 1e-3);
-
-constexpr int ENV_NONE = 0, ENV_CONST = 1, ENV_GRADIENT = 2;
-constexpr int DIM_LIGHT_SELECT = 1, DIM_LIGHT_UV = 2, DIM_SCATTER_UV = 3,
-              DIM_BSDF_UV = 4, DIM_RUSSIAN_ROULETTE = 5;
-
-// ---- PCG counter hash: core/sampler.py hash_u32, bit for bit ----
-static __device__ __forceinline__ uint32_t mix(uint32_t h, uint32_t k) {
-  k *= 0xCC9E2D51u;
-  k = (k << 15) | (k >> 17);
-  k *= 0x1B873593u;
-  h ^= k;
-  h = (h << 13) | (h >> 19);
-  return h * 5u + 0xE6546B64u;
-}
-
-static __device__ __forceinline__ float u1(uint32_t seed, uint32_t pix,
-                                           uint32_t smp, uint32_t bounce,
-                                           uint32_t dim, uint32_t lane) {
-  uint32_t h = 0x9E3779B9u;
-  h = mix(h, seed);
-  h = mix(h, pix);
-  h = mix(h, smp);
-  h = mix(h, bounce * 16u + dim);
-  h = mix(h, lane);
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  const uint32_t word = ((h >> ((h >> 28) + 4u)) ^ h) * 277803737u;
-  const uint32_t bits = (word >> 22) ^ word;
-  return (float)(bits >> 8) * (1.0f / 16777216.0f);
-}
-
-// Shirley-Chiu concentric map on [-1,1]^2.
-static __device__ __forceinline__ void concentric(float x, float y, float& px,
-                                                  float& py) {
-  const bool big = fabsf(x) > fabsf(y);
-  const float r = big ? x : y;
-  const float xs = (x == 0.0f) ? 1.0f : x;
-  const float ys = (y == 0.0f) ? 1.0f : y;
-  const float theta = big ? PI_4 * (y / xs) : PI_2 - PI_4 * (x / ys);
-  const bool deg = (x == 0.0f) && (y == 0.0f);
-  px = deg ? 0.0f : r * cosf(theta);
-  py = deg ? 0.0f : r * sinf(theta);
-}
 
 struct Tables {
   const float* bank;  // shared-memory copy
@@ -87,6 +35,7 @@ struct Tables {
   int n_area;
   const float* env;  // [6]
   int env_kind;
+  __device__ Bank prims() const { return Bank{bank, n_sph, n_quad, n_tri, n_disk}; }
 };
 
 static __device__ __forceinline__ void env_along(const Tables& tb, float x,
@@ -106,15 +55,6 @@ static __device__ __forceinline__ void env_along(const Tables& tb, float x,
   } else {
     er = eg = eb = 0.0f;
   }
-}
-
-static __device__ __forceinline__ bool occluded(const Tables& tb,
-                                                const Ray& r, float t_max) {
-  float t;
-  int row;
-  sweep<true>(tb.bank, tb.n_sph, tb.n_quad, tb.n_tri, tb.n_disk, r, t_max, t,
-              row);
-  return t < BIG;
 }
 
 // The bounce of one live lane. in[9]: origin, dir, beta; out[12]: radiance,
@@ -276,7 +216,7 @@ static __device__ unsigned bounce_lane(const Tables& tb, const float* in,
     // lane with valid_l false adds zero either way.
     if (valid_l && alive)
       valid_l = !occluded(
-          tb, Ray{sox, soy, soz, ptx - sox, pty - soy, ptz - soz}, SHADOW_T);
+          tb.prims(), Ray{sox, soy, soz, ptx - sox, pty - soy, ptz - soz}, SHADOW_T);
     const float w_l = pdf_l * pdf_l /
                       max0(pdf_l * pdf_l + pdf_scatter * pdf_scatter, (float)1e-30);
     const float contrib = valid_l ? fl * w_l / pdf_l : 0.0f;
@@ -328,7 +268,7 @@ static __device__ unsigned bounce_lane(const Tables& tb, const float* in,
     bool valid_e = env_on && arm_env && (pdf2 > 0.0f);
     if (alive && (valid_b || valid_e)) {
       const bool occ2 =
-          occluded(tb, Ray{s2ox, s2oy, s2oz, w2x, w2y, w2z}, tmax2);
+          occluded(tb.prims(), Ray{s2ox, s2oy, s2oz, w2x, w2y, w2z}, tmax2);
       valid_b = valid_b && !occ2;
       valid_e = valid_e && !occ2;
     }
@@ -406,7 +346,6 @@ __global__ void fused_bounce_kernel(
     const int* __restrict__ samp, int n, float* __restrict__ fout,
     int* __restrict__ alive_out, unsigned long long* __restrict__ count) {
   extern __shared__ float s_bank[];
-  __shared__ unsigned warp_sums[32];
   stage_bank(s_bank, bank, n_sph + n_quad + n_tri + n_disk);
   const Tables tb{s_bank, n_sph, n_quad, n_tri,  n_disk,
                   mats,   n_mats, lights, n_area, env, env_kind};
@@ -429,19 +368,7 @@ __global__ void fused_bounce_kernel(
     for (int j = 0; j < 12; ++j) fout[j * stride + lane] = out[j];
     alive_out[lane] = alive;
   }
-  // Exact traced-ray count: warp shuffle, then one atomic per block.
-  for (int off = 16; off > 0; off >>= 1)
-    rays += __shfl_down_sync(0xffffffffu, rays, off);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) warp_sums[warp] = rays;
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = (blockDim.x + 31) >> 5;
-    rays = (int)threadIdx.x < n_warps ? warp_sums[threadIdx.x] : 0u;
-    for (int off = 16; off > 0; off >>= 1)
-      rays += __shfl_down_sync(0xffffffffu, rays, off);
-    if (threadIdx.x == 0 && rays) atomicAdd(count, (unsigned long long)rays);
-  }
+  count_rays(rays, count);
 }
 
 }  // namespace pbrs

@@ -1,9 +1,9 @@
 """Next-event estimation with multiple importance sampling. Mirrors
-pbrs_tpu/integrators/nee.py in its two-arm mode for area lights and the
-none/const/gradient environment (delta lights, environment importance
-sampling and the folded mode are not ported yet).
+pbrs_tpu/integrators/nee.py in its two-arm mode for delta lights, area
+lights and the none/const/gradient/dusk environment (environment
+importance sampling and the folded mode are not ported yet).
 
-One light is chosen uniformly per ray among area + env; two shadow
+One light is chosen uniformly per ray among delta + area + env; two shadow
 batches per call: the light-sampled direction and the BSDF-sampled one
 (shared by the area-MIS arm and the env arm).
 """
@@ -28,49 +28,64 @@ def uniform_sample_one_light(scene, lobes, frame, hit_pos, hit_normal, wo,
                              u_select, u_light, u_scatter, occlude_fn, alive):
     """Direct lighting [N,3] at shading points. `occlude_fn(rays)` is the
     any-hit query; lanes with `alive` false get t_max=0 shadow rays."""
-    if scene.delta_lights.count:
-        raise NotImplementedError(
-            "pbrs_tpu.lights.lights.sample_delta (delta lights in NEE) is "
-            "not ported to pbrs_tpu_torch yet")
-
     def mask_dead(rays):
         return rays.replace(t_max=torch.where(alive, rays.t_max, 0.0))
 
+    n_delta = scene.delta_lights.count
     n_area = scene.area_lights.count
     has_env = 1 if scene.env.kind != lt.ENV_NONE else 0
-    n_lights = n_area + has_env
+    n_lights = n_delta + n_area + has_env
     if n_lights == 0:
         return torch.zeros_like(hit_pos)
 
     chosen = torch.clamp_max((u_select * n_lights).to(torch.int32),
                              n_lights - 1)
-    arm_area = chosen < n_area
-    arm_env = chosen >= n_area
+    arm_delta = chosen < n_delta
+    arm_area = (chosen >= n_delta) & (chosen < n_delta + n_area)
+    arm_env = chosen >= n_delta + n_area
     result = torch.zeros_like(hit_pos)
-    a_idx = torch.clamp(chosen, 0, max(n_area - 1, 0))
+    a_idx = torch.clamp(chosen - n_delta, 0, max(n_area - 1, 0))
 
-    # ------------------------ light-sampled arm ------------------------
-    if n_area > 0:
-        li_a, wi_a, pdf_a, pt_a = lt.sample_area(
-            scene.area_lights, a_idx, hit_pos, u_light)
+    # ----------------- light-sampled arm (delta + area) -----------------
+    if n_delta + n_area > 0:
         z_axis = torch.tensor([0.0, 0.0, 1.0], device=hit_pos.device)
-        a3 = arm_area[..., None]
-        li_l = torch.where(a3, li_a, 0.0)
-        wi_l = torch.where(a3, wi_a, z_axis)
-        target_l = torch.where(a3, pt_a, hit_pos)
-        pdf_l = torch.where(arm_area, pdf_a, 1.0)
+        li_l = torch.zeros_like(hit_pos)
+        wi_l = z_axis.expand_as(hit_pos)
+        target_l = hit_pos
+        pdf_l = torch.ones_like(hit_pos[..., 0])
+        if n_delta > 0:
+            li_d, wi_d, target_d = lt.sample_delta(
+                scene.delta_lights, torch.clamp(chosen, 0, n_delta - 1),
+                hit_pos)
+            d3 = arm_delta[..., None]
+            li_l = torch.where(d3, li_d, li_l)
+            wi_l = torch.where(d3, wi_d, wi_l)
+            target_l = torch.where(d3, target_d, target_l)
+        if n_area > 0:
+            li_a, wi_a, pdf_a, pt_a = lt.sample_area(
+                scene.area_lights, a_idx, hit_pos, u_light)
+            a3 = arm_area[..., None]
+            li_l = torch.where(a3, li_a, li_l)
+            wi_l = torch.where(a3, wi_a, wi_l)
+            target_l = torch.where(a3, pt_a, target_l)
+            pdf_l = torch.where(arm_area, pdf_a, pdf_l)
 
         f_l = bsdf_mod.eval_bsdf(lobes, frame, wo, wi_l) * torch.abs(
             vm.dot(hit_normal, wi_l))[..., None]
         scatter_pdf = bsdf_mod.pdf_bsdf(lobes, frame, wo, wi_l)
         shadow = ray_mod.spawn_limited_to(hit_pos, hit_normal, target_l)
         occluded_l = occlude_fn(mask_dead(shadow))
-        weight = _power2_heuristic(pdf_l, scatter_pdf)
-        valid = (arm_area & ~occluded_l & (pdf_l > 0.0)
+        # MIS weight: 1 for delta lights, power 2 otherwise.
+        weight = torch.where(arm_delta, 1.0,
+                             _power2_heuristic(pdf_l, scatter_pdf))
+        valid = ((arm_delta | arm_area) & ~occluded_l & (pdf_l > 0.0)
                  & ((li_l[..., 0] > 0.0) | (li_l[..., 1] > 0.0)
                     | (li_l[..., 2] > 0.0)))
         contrib = f_l * li_l * (weight * vm.weak_recip(pdf_l))[..., None]
         result = result + torch.where(valid[..., None], contrib, 0.0)
+
+    if not (n_area > 0 or has_env):
+        return result * float(n_lights)
 
     # ---------------- BSDF-sampled arm (area MIS + env) ----------------
     f_b, wi_b, pdf_b, is_delta_b = bsdf_mod.sample_bsdf(lobes, frame, wo,

@@ -3,9 +3,10 @@ pbrs_tpu/integrators/wavefront.py: camera rays without a pixel filter, the
 masked two-arm ``path_radiance`` loop and ``render_samples`` (filters,
 compaction, folded NEE and the audit are not ported yet).
 
-Every bounce runs intersect -> emission -> NEE -> BSDF sample -> Russian
-roulette on all lanes, with terminated lanes masked; the bounce loop is a
-Python loop over whole-batch tensor ops.
+Every bounce runs intersect -> shading (textures overlaid) -> emission on
+camera and post-delta segments -> NEE -> BSDF sample -> Russian roulette
+on all lanes, with terminated lanes masked; the bounce loop is a Python
+loop over whole-batch tensor ops.
 """
 
 from __future__ import annotations
@@ -71,7 +72,8 @@ def path_radiance(scene, rays, sampler, pixel_idx, sample_idx, intersect_fn,
     for bounce in range(max_depth):
         ray_count = ray_count + (rays.t_max > 0.0).sum()
         hit = intersect_fn(rays)
-        lobes, emit = mat_mod.shading_at(scene.materials, hit.mat_id)
+        lobes, emit = mat_mod.shading_at(scene.materials, scene.textures,
+                                         hit.mat_id, hit.uv, hit.pos)
         # Emission counts on camera segments and after delta bounces.
         env = lt.eval_env(scene.env, rays.dir)
         direct_seen = torch.where(hit.hit[..., None], emit, env)

@@ -1,11 +1,13 @@
 """Build and load the hand-written CUDA kernels under ``csrc/``.
 
-The sources are compiled with nvcc into one shared library with a plain C
-interface and loaded with ctypes (no PyTorch headers, so a build takes
-seconds). The library lands in ``<repo>/build/pbrs_tpu_torch_kernels/``,
-named by a content hash of the sources and flags, so an unchanged tree
-reuses it and a changed one rebuilds. Nothing is built or loaded until a
-kernel is first launched on a CUDA tensor.
+Each source is compiled by its own nvcc process, all started together, and
+the objects are linked into one shared library with a plain C interface,
+loaded with ctypes (no PyTorch headers, so a build takes seconds). The
+library lands in ``<repo>/build/pbrs_tpu_torch_kernels/``, named by a
+content hash of the sources and flags, so an unchanged tree reuses it and a
+changed one rebuilds; ``-Xptxas -v`` (registers, spills, shared memory per
+kernel) goes to a ``.ptxas.log`` beside it. Nothing is built or loaded
+until a kernel is first launched on a CUDA tensor.
 
 Numerics: no ``--use_fast_math`` and ``-fmad=false``. PyTorch's plain
 versions run one op per kernel and never contract ``a*b+c`` into an FMA;
@@ -19,15 +21,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("trace_flat.cu", "fused_bounce.cu")
-HEADERS = ("trace_flat.cuh",)
+SOURCES = ("trace_flat.cu", "fused_bounce.cu", "fused_single_lobe.cu")
+HEADERS = ("trace_flat.cuh", "bounce_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "pbrs_tpu_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +40,10 @@ _SIGNATURES = {
     "pbrs_fused_bounce": [_VP, _I, _I, _I, _I, _VP, _I, _VP, _I, _VP, _I,
                           _I, _I, _I, _I, _VP, _VP, _VP, _VP, _I, _VP, _VP,
                           _VP, _VP],
+    "pbrs_fused_single_lobe": [_VP, _I, _I, _I, _I, _VP, _I, _I, _VP, _I, _I,
+                               _VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _I,
+                               _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP,
+                               _VP, _VP],
     "pbrs_error_string": [_I],
     "pbrs_max_bank_rows": [],
 }
@@ -68,21 +75,40 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpbrs_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+def _run(cmd):
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists: one
+    nvcc per source, started together, then one link."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        logs = list(pool.map(_run, [
+            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+             str(CSRC / src)] for src, obj in zip(SOURCES, objs)]))
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    _run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+          *(str(o) for o in objs)])
+    for obj in objs:
+        obj.unlink()
+    ptxas_log_path().write_text("".join(
+        f"== {src}\n{log}" for src, log in zip(SOURCES, logs)))
     os.replace(tmp, out)
     return out
+
+
+def ptxas_log_path() -> Path:
+    return library_path().with_suffix(".ptxas.log")
 
 
 def lib():

@@ -1,12 +1,13 @@
-"""Light tables: area lights and the environment light. Mirrors
-pbrs_tpu/lights/lights.py for quad area lights and none/const/gradient
-environments; delta lights, the dusk and image environments raise
-NotImplementedError until their slice is ported.
+"""Light tables: delta lights, area lights and the environment light.
+Mirrors pbrs_tpu/lights/lights.py for point/distant lights, the four area
+shapes and the none/const/gradient/dusk environments; the image
+environment raises NotImplementedError until its slice is ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -89,10 +90,11 @@ def make_env_none() -> EnvLight:
                     color_b=torch.zeros(3, dtype=torch.float32))
 
 
-def make_env_dusk(*a, **k):
-    raise NotImplementedError(
-        "pbrs_tpu.lights.lights.make_env_dusk is not ported to "
-        "pbrs_tpu_torch yet")
+def make_env_dusk() -> EnvLight:
+    """Dome over an orange horizon band."""
+    horizon = torch.tensor([245, 174, 82], dtype=torch.float32) / 255.0
+    dome = torch.tensor([109, 150, 204], dtype=torch.float32) / 255.0
+    return EnvLight(kind=ENV_DUSK, color_a=dome, color_b=horizon)
 
 
 def make_env_image(*a, **k):
@@ -107,10 +109,16 @@ def eval_env(env: EnvLight, directions):
         return torch.zeros_like(directions)
     if env.kind == ENV_CONST:
         return env.color_a.expand_as(directions)
+    d = vm.normalize(directions)
     if env.kind == ENV_GRADIENT:
-        d = vm.normalize(directions)
         y = (d[..., 1:2] + 1.0) * 0.5
         return env.color_a * y + env.color_b * (1.0 - y)
+    if env.kind == ENV_DUSK:
+        tilt = torch.arccos(torch.clamp(d[..., 1:2], -1.0, 1.0))
+        t = tilt / (math.pi * 0.25)
+        mid = env.color_a * t + env.color_b * (1.0 - t)
+        out = torch.where(tilt > math.pi * 0.25, env.color_a, mid)
+        return torch.where(tilt <= 0.0, 0.2, out)
     raise NotImplementedError(
         f"pbrs_tpu.lights.lights.eval_env kind {env.kind} is not ported to "
         "pbrs_tpu_torch yet")
@@ -122,6 +130,24 @@ def area_rows(lights: AreaLights, idx):
     params = {"p0": lights.p0[i], "p1": lights.p1[i], "p2": lights.p2[i],
               "scalar": lights.scalar[i]}
     return lights.shape_kind[i], lights.emit[i], params
+
+
+def sample_delta(lights: DeltaLights, idx, hit_pos):
+    """Incident radiance from a chosen delta light: (radiance [N,3], wi
+    unit [N,3], vis_target [N,3]); the shadow segment is hit_pos ->
+    vis_target."""
+    i = idx.to(torch.int64)
+    kind, p, c = lights.kind[i], lights.position[i], lights.color[i]
+    to_l = p - hit_pos
+    d2 = torch.clamp_min(vm.dot(to_l, to_l), 1e-30)
+    rad_point = c / d2[..., None]
+    wi_point = vm.normalize(to_l)
+    # A distant light's position holds its casting direction.
+    wi_dist = vm.normalize(-p)
+    outside = hit_pos - 2.0 * lights.world_radius * p
+    k3 = kind[..., None] == POINT
+    return (torch.where(k3, rad_point, c), torch.where(k3, wi_point, wi_dist),
+            torch.where(k3, p, outside))
 
 
 def sample_area(lights: AreaLights, idx, hit_pos, u2):
@@ -156,40 +182,48 @@ class LightsBuilder:
     """Host-side accumulator for scene lights."""
 
     def __init__(self):
+        self.delta = []  # (kind, position/dir, color)
         self.area = []  # (shape_kind, emit, p0, p1, p2, scalar)
         self.env = make_env_none()
+        self.world_radius = 1.0
 
-    def _not_ported(self, name):
-        raise NotImplementedError(
-            f"pbrs_tpu.lights.lights.LightsBuilder.{name} is not ported to "
-            "pbrs_tpu_torch yet")
+    def add_point(self, position, intensity):
+        self.delta.append((POINT, np.asarray(position, np.float32),
+                           np.asarray(intensity, np.float32)))
 
-    def add_point(self, *a, **k):
-        self._not_ported("add_point")
-
-    def add_distant(self, *a, **k):
-        self._not_ported("add_distant")
-
-    def add_area_sphere(self, *a, **k):
-        self._not_ported("add_area_sphere")
-
-    def add_area_disk(self, *a, **k):
-        self._not_ported("add_area_disk")
-
-    def add_area_triangle(self, *a, **k):
-        self._not_ported("add_area_triangle")
+    def add_distant(self, casting_dir, radiance):
+        self.delta.append((DISTANT, np.asarray(casting_dir, np.float32),
+                           np.asarray(radiance, np.float32)))
 
     def add_area_quad(self, emit, origin, edge_u, edge_v):
         self.area.append((ss.QUAD, emit, origin, edge_u, edge_v, 0.0))
 
+    def add_area_sphere(self, emit, center, radius):
+        self.area.append((ss.SPHERE, emit, center, (0, 0, 1), (0, 0, 0),
+                          float(radius)))
+
+    def add_area_disk(self, emit, center, normal, radial):
+        self.area.append((ss.DISK, emit, center, normal, radial, 0.0))
+
+    def add_area_triangle(self, emit, p0, p1, p2):
+        self.area.append((ss.TRIANGLE, emit, p0, p1, p2, 0.0))
+
     def build(self):
         t = torch.from_numpy
-        # No delta light is ported, so this is always the empty table
-        # (pbrs_tpu.lights.lights.empty_delta, world radius 1).
-        delta = DeltaLights(
-            kind=torch.zeros(1, dtype=torch.int32),
-            position=torch.zeros(1, 3), color=torch.zeros(1, 3),
-            world_radius=torch.tensor(1.0), count=0)
+        if self.delta:
+            delta = DeltaLights(
+                kind=t(np.asarray([d[0] for d in self.delta], np.int32)),
+                position=t(np.stack([d[1] for d in self.delta])),
+                color=t(np.stack([d[2] for d in self.delta])),
+                world_radius=torch.tensor(self.world_radius,
+                                          dtype=torch.float32),
+                count=len(self.delta))
+        else:
+            # The empty table (world radius 1, as the JAX package's).
+            delta = DeltaLights(
+                kind=torch.zeros(1, dtype=torch.int32),
+                position=torch.zeros(1, 3), color=torch.zeros(1, 3),
+                world_radius=torch.tensor(1.0), count=0)
         if self.area:
             f3 = lambda i: np.stack(  # noqa: E731
                 [np.asarray(a[i], np.float32).reshape(3) for a in self.area])

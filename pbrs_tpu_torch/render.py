@@ -5,9 +5,10 @@ the direct integrator are not ported yet).
 The pixel grid (in chunks of at most 2^20 pixels) renders one sample
 index per launch, accumulating into a film. Which integrator runs:
 
-- route "auto": the fused diffuse kernel (K2) when the scene is eligible
-  and the device is CUDA, else the general wavefront, tracing through the
-  flat-bank kernel (K1) on CUDA and the broadcast sweep on the CPU;
+- route "auto": on CUDA, the fused diffuse kernel (K2) when the scene is
+  eligible, else the fused single-lobe kernel (K3) when that one is, else
+  the general wavefront tracing through the flat-bank kernel (K1); on the
+  CPU, the general wavefront with the broadcast sweep;
 - route "general": the general wavefront through K1 (its plain version on
   the CPU);
 - route "plain": the general wavefront with the broadcast sweep, no kernel.
@@ -23,6 +24,7 @@ import torch
 
 from .accel import dispatch as trace_dispatch
 from .accel import fused_kernel as fk
+from .accel import fused_single_lobe as fsl
 from .core import sampler as smp
 from .integrators import wavefront
 
@@ -63,16 +65,20 @@ def make_integrator(scene, sampler, max_depth: int, msaa: int,
                     route: str = "auto"):
     """(name, fn): fn(pixel_idx, sample_idx) -> (radiance [N,3], traced-ray
     count). `scene` must already be on its device."""
-    if route not in ROUTES:
-        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    _check_route(route)
     on_cuda = scene.device.type == "cuda"
-    if route == "auto" and on_cuda and fk.scene_supports_fused(scene):
-        fused = fk.FusedDiffuseIntegrator(scene)
-
+    fused = None
+    if route == "auto" and on_cuda:
+        if fk.scene_supports_fused(scene):
+            name, fused = "fused", fk.FusedDiffuseIntegrator(scene)
+        elif fsl.scene_supports_single_lobe(scene):
+            name = "fused_single_lobe"
+            fused = fsl.FusedSingleLobeIntegrator(scene)
+    if fused is not None:
         def fused_fn(pix, s):
             return fused.render_samples(sampler, pix, s, max_depth=max_depth,
                                         msaa=msaa)
-        return "fused", fused_fn
+        return name, fused_fn
     use_kernels = route == "general" or (route == "auto" and on_cuda)
     isect_fn, occl_fn = trace_dispatch.make_trace_fns(scene, use_kernels)
 
@@ -83,19 +89,28 @@ def make_integrator(scene, sampler, max_depth: int, msaa: int,
     return ("general" if use_kernels else "plain"), general_fn
 
 
+def _check_route(route):
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+
+
 def render_image(scene, spp: int = 4, max_depth: int = 5,
                  integrator: str = "path", seed: int = 0,
                  chunk_pixels: int | None = None, progress: bool = False,
-                 device=None, route: str = "auto"):
+                 device="cuda", route: str = "auto"):
     """Render the scene camera view. Returns (image [H,W,3] np.float32,
-    RenderStats). spp is rounded up to a square (msaa^2 strata). `device`
-    defaults to the scene's own."""
+    RenderStats). spp is rounded up to a square (msaa^2 strata). The
+    render runs on the card unless `device` asks for another device
+    ("cpu"); moving the scene to CUDA raises without one."""
     if integrator != "path":
         raise NotImplementedError(
             f"integrator {integrator!r} (pbrs_tpu.integrators.direct) is not "
             "ported to pbrs_tpu_torch yet")
-    if device is not None:
-        scene = scene.to(device)
+    _check_route(route)
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("render_image: no CUDA device; pass device='cpu' "
+                           "to render on the CPU")
+    scene = scene.to(device)
     dev = scene.device
     cam = scene.camera
     w, h = cam.width, cam.height

@@ -1,6 +1,6 @@
 """Scene buffers: the full scene as one dataclass. Mirrors
-pbrs_tpu/scene/buffers.py (trace-time instance groups and textures are not
-ported yet).
+pbrs_tpu/scene/buffers.py (trace-time instance groups are not ported
+yet).
 
 The scene is built in NumPy on the host and moved with one
 ``scene.to(device)``, so one builder serves the CPU tests and the card.
@@ -21,12 +21,14 @@ from ..lights import lights as lt
 from ..lights.lights import AreaLights, DeltaLights, EnvLight, LightsBuilder
 from ..materials.table import MaterialBuilder, MaterialTable
 from ..shapes.tables import GeometryBuilder, GeometryTables
+from ..textures.textures import TextureBuilder, TextureTable
 
 
 @dataclass
 class Scene:
     geom: GeometryTables
     materials: MaterialTable
+    textures: TextureTable
     delta_lights: DeltaLights
     area_lights: AreaLights
     env: EnvLight
@@ -54,7 +56,9 @@ class Scene:
 # fields (counts, kinds, sizes) are Python ints, carried as 0-d arrays.
 _TENSOR_FIELDS = {
     "geom": [f.name for f in dataclasses.fields(GeometryTables)],
-    "materials": ["kind", "albedo", "tex_id", "emission"],
+    "materials": ["kind", "albedo", "specular", "alpha", "distrib",
+                  "fr_kind", "eta", "eta_t", "k", "tex_id", "emission"],
+    "textures": ["kind", "color_a", "color_b", "freq"],
     "delta_lights": ["kind", "position", "color", "world_radius"],
     "area_lights": ["shape_kind", "emit", "p0", "p1", "p2", "scalar"],
     "env": ["color_a", "color_b"],
@@ -98,6 +102,8 @@ def scene_from_arrays(d: dict) -> Scene:
             **g("materials"),
             textured_slots=tuple(sorted(set(np.nonzero(tex >= 0)[1].tolist()))),
             present_kinds=tuple(sorted(set(mkind[mkind != 0].tolist())))),
+        textures=TextureTable(**g("textures"), present_kinds=tuple(sorted(
+            set(t["textures.kind"].tolist())))),
         delta_lights=DeltaLights(**g("delta_lights"),
                                  count=i["delta_lights.count"]),
         area_lights=AreaLights(**g("area_lights"), count=n_area,
@@ -114,22 +120,40 @@ class SceneBuilder:
     def __init__(self):
         self.geometry = GeometryBuilder()
         self.materials = MaterialBuilder()
+        self.textures = TextureBuilder()
         self.lights = LightsBuilder()
         self.camera: Camera | None = None
-
-    @property
-    def textures(self):
-        raise NotImplementedError(
-            "pbrs_tpu.textures.textures.TextureBuilder is not ported to "
-            "pbrs_tpu_torch yet")
 
     def add_instance_group(self, *a, **k):
         raise NotImplementedError(
             "pbrs_tpu.scene.buffers.SceneBuilder.add_instance_group is not "
             "ported to pbrs_tpu_torch yet")
 
+    def world_bound(self):
+        """Conservative scene AABB of the accumulated primitives."""
+        g = self.geometry
+        pts = []
+        for c, r, _ in g.spheres:
+            pts += [np.asarray(c) - r, np.asarray(c) + r]
+        for o, u, v, _ in g.quads:
+            pts += [o, o + u, o + v, o + u + v]
+        for t in g.tris:
+            pts += [t[0], t[1], t[2]]
+        for c, _, r, _ in g.disks:
+            rad = np.linalg.norm(r)
+            pts += [np.asarray(c) - rad, np.asarray(c) + rad]
+        if not pts:
+            return -np.ones(3), np.ones(3)
+        pts = np.stack([np.asarray(p, np.float64) for p in pts])
+        return pts.min(axis=0), pts.max(axis=0)
+
     def build(self) -> Scene:
+        lo, hi = self.world_bound()
+        # Distant lights are placed outside the scene bound.
+        self.lights.world_radius = float(np.linalg.norm(hi - lo) * 0.5
+                                         + 1e-3)
         delta, area, env = self.lights.build()
         return Scene(geom=self.geometry.build(),
-                     materials=self.materials.build(), delta_lights=delta,
+                     materials=self.materials.build(),
+                     textures=self.textures.build(), delta_lights=delta,
                      area_lights=area, env=env, camera=self.camera)

@@ -1,12 +1,29 @@
-"""Preset scenes. Mirrors pbrs_tpu/scene/presets.py; only the Cornell box
-is ported so far (the CLI refuses every other name as not yet ported).
+"""Preset scenes. Mirrors pbrs_tpu/scene/presets.py for the table scenes:
+cornell_box, quad, quad_light, two_perlin_spheres, earth, mixed_spheres,
+plates and env_mapped (everything, mesh_ball and fourier_plastic wait for
+meshes, Oren-Nayar/substrate and Fourier tables). Presets whose upstream
+image assets are absent use procedural stand-ins, as the JAX package's do.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from ..geometry import camera as cam_mod
 from ..geometry import transform as tf
+from ..lights import lights as lt
 from .buffers import Scene, SceneBuilder
+
+WIDTH, HEIGHT = 800, 800
+
+# Metal (eta, k) per RGB channel.
+SILVER = ((0.155184, 0.116681, 0.138360), (4.828131, 3.122411, 2.147082))
+ALUMINIUM = ((1.656937, 0.880173, 0.521201), (9.224230, 6.269670, 4.836996))
+GOLD = ((0.143176, 0.373096, 1.443834), (3.982675, 2.387439, 1.602465))
+COPPER = ((0.195470, 0.925682, 1.102186), (3.910869, 2.451263, 2.142653))
+
+BLUE_SKY = lt.make_env_gradient(top=(0.5, 0.7, 1.0), bottom=(1.0, 1.0, 1.0))
+DARK_ROOM = lt.make_env_gradient(top=(0.1, 0.1, 0.1), bottom=(0.1, 0.1, 0.1))
 
 
 def cornell_box() -> Scene:
@@ -39,4 +56,167 @@ def cornell_box() -> Scene:
     return b.build()
 
 
-PRESETS = {"cornell_box": cornell_box}
+def quad() -> Scene:
+    """One blue quad under a blue sky."""
+    b = SceneBuilder()
+    m = b.materials.add_lambertian((0.2, 0.3, 0.7))
+    b.geometry.add_quad((-0.5, -0.3, 2.5), (1.0, 0, 0), (0, 0.9, 0), m)
+    b.lights.env = BLUE_SKY
+    b.camera = cam_mod.make_camera((WIDTH, HEIGHT), 45.0)
+    return b.build()
+
+
+def quad_light() -> Scene:
+    """Perlin spheres under a quad + sphere light pair."""
+    b = SceneBuilder()
+    perlin = b.textures.add_perlin(4.0)
+    m = b.materials.add_lambertian(tex_id=perlin)
+    light_power = (4.0, 4.0, 4.0)
+    light = b.materials.add_diffuse_light(light_power)
+
+    g = b.geometry
+    g.add_sphere((0, -1000, 0), 1000.0, m)
+    g.add_sphere((0, 2, 0), 2.0, m)
+    # new_xy((3,5),(1,3),2.1): origin (3,1,2.1), u=(2,0,0), v=(0,2,0)
+    g.add_quad((3, 1, 2.1), (2, 0, 0), (0, 2, 0), light)
+    g.add_sphere((0, 7, 0), 2.0, light)
+
+    b.lights.add_area_quad(light_power, (3, 1, 2.1), (2, 0, 0), (0, 2, 0))
+    b.lights.add_area_sphere(light_power, (0, 7, 0), 2.0)
+    b.lights.env = DARK_ROOM
+
+    cam = cam_mod.make_camera((WIDTH, HEIGHT), 20.0)
+    b.camera = cam_mod.looking_at(cam, (26, 3, -6), (0, 2, 0), (0, 1, 0))
+    return b.build()
+
+
+def two_perlin_spheres() -> Scene:
+    """Two Perlin-marble spheres under a blue sky."""
+    b = SceneBuilder()
+    perlin = b.textures.add_perlin(4.0)
+    m = b.materials.add_lambertian(tex_id=perlin)
+    b.geometry.add_sphere((0, -1000, 0), 1000.0, m)
+    b.geometry.add_sphere((0, 2, 0), 2.0, m)
+    b.lights.env = BLUE_SKY
+    cam = cam_mod.make_camera((WIDTH, HEIGHT), 20.0)
+    b.camera = cam_mod.looking_at(cam, (13, 2, -3), (0, 0, 0), (0, 1, 0))
+    return b.build()
+
+
+def earth() -> Scene:
+    """A checkered globe (stand-in for the absent earth map)."""
+    b = SceneBuilder()
+    checker = b.textures.add_checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
+    m = b.materials.add_lambertian(tex_id=checker)
+    b.geometry.add_sphere((0, 0, 0), 2.0, m)
+    b.lights.env = BLUE_SKY
+    cam = cam_mod.make_camera((WIDTH, HEIGHT), 20.0)
+    b.camera = cam_mod.looking_at(cam, (13, 2, -3), (0, 0, 0), (0, 1, 0))
+    return b.build()
+
+
+def mixed_spheres(seed: int = 42) -> Scene:
+    """RTweekend 100+ sphere field."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    g = b.geometry
+
+    g.add_sphere((0, -1000, 1), 1000.0, b.materials.add_lambertian((0.5, 0.5, 0.5)))
+    g.add_sphere((0, 1, 0), 1.0, b.materials.add_dielectric(1.5))
+    g.add_sphere((-4, 1, 0), 1.0, b.materials.add_lambertian((0.4, 0.2, 0.1)))
+    gold_m = b.materials.add_metal(GOLD[0], GOLD[1], 0.0)
+    g.add_sphere((4, 1, 0), 1.0, gold_m)
+
+    metals = [GOLD, SILVER, COPPER, ALUMINIUM]
+    for a in range(-11, 11):
+        for bb in range(-11, 11):
+            choose = rng.random()
+            center = np.array(
+                [a + 0.9 * rng.random(),
+                 0.2 + rng.random() ** 3 * 0.1,
+                 bb + 0.9 * rng.random()]
+            )
+            if np.linalg.norm(center - np.array([4.0, 0.2, 0.0])) <= 0.9:
+                continue
+            if choose < 0.8:
+                m = b.materials.add_lambertian(tuple(rng.random(3)))
+            elif choose < 0.95:
+                eta, k = metals[rng.integers(0, 4)]
+                m = b.materials.add_metal(eta, k, rng.random() * 0.5)
+            else:
+                m = b.materials.add_dielectric(1.4)
+            g.add_sphere(center, 0.2, m)
+
+    b.lights.env = BLUE_SKY
+    cam = cam_mod.make_camera((WIDTH, HEIGHT), 25.0)
+    b.camera = cam_mod.looking_at(cam, (13, 2, 3), (0, 0, 0), (0, 1, 0))
+    return b.build()
+
+
+def plates() -> Scene:
+    """Four glossy plates under four colored sphere lights."""
+    b = SceneBuilder()
+    r = 20.0
+    matte = b.materials.add_lambertian((0.4, 0.4, 0.4))
+    g = b.geometry
+    g.add_quad((-r, 0, 0), (2 * r, 0, 0), (0, r, 0), matte)  # wall xy
+    g.add_quad((-r, 0, -r), (2 * r, 0, 0), (0, 0, r), matte)  # floor xz
+
+    lights_pos = np.array([0.0, r, -0.4 * r])
+    camera_pos = np.array([0.0, 0.4 * r, -2.8 * r])
+    left, right = -r * 0.7, r * 0.7
+    plates_yz = [(0.6 * r, -0.2 * r), (0.45 * r, -0.3 * r),
+                 (0.3 * r, -0.45 * r), (0.2 * r, -0.6 * r)]
+    roughs = [8e-5, 3e-4, 8e-4, 3e-3]
+    plate_width = 0.16 * r
+    for (py, pz), rough in zip(plates_yz, roughs):
+        pl = np.array([0.0, lights_pos[1] - py, lights_pos[2] - pz])
+        pc = np.array([0.0, camera_pos[1] - py, camera_pos[2] - pz])
+        normal = pl / np.linalg.norm(pl) + pc / np.linalg.norm(pc)
+        normal /= np.linalg.norm(normal)
+        tangent = np.array([0.0, normal[2], -normal[1]])
+        tangent = tangent / np.linalg.norm(tangent) * (plate_width * 0.5)
+        m = b.materials.add_glossy((0.9, 0.9, 0.9), rough)
+        t00 = np.array([left, py, pz]) + tangent
+        t10 = np.array([right, py, pz]) + tangent
+        # quad spanning the two rails
+        g.add_quad(t00, t10 - t00, -2.0 * tangent, m)
+
+    light_x = np.linspace(left * 0.9, right * 0.9, 4)
+    sizes = [0.1 * r, 0.06 * r, 0.03 * r, 0.01 * r]
+    colors = [(1.0, 0.8, 0.8), (1.0, 1.0, 0.8), (0.8, 1.0, 0.8), (0.8, 0.8, 1.0)]
+    for x, s, c in zip(light_x, sizes, colors):
+        center = (x, lights_pos[1], lights_pos[2])
+        g.add_sphere(center, s, b.materials.add_diffuse_light(c))
+        b.lights.add_area_sphere(c, center, s)
+
+    cam = cam_mod.make_camera((1000, 800), np.degrees(np.pi * 0.19))
+    b.camera = cam_mod.looking_at(cam, camera_pos, camera_pos + np.array([0, 0, 1]),
+                                  (0, 1, 0))
+    return b.build()
+
+
+def env_mapped() -> Scene:
+    """Mirror + metal spheres under an environment."""
+    b = SceneBuilder()
+    g = b.geometry
+    g.add_sphere((0, 0, 0), 2.0, b.materials.add_mirror((1, 1, 1)))
+    for i, rough in enumerate([0.001, 0.003, 0.01, 0.03]):
+        m = b.materials.add_metal(GOLD[0], GOLD[1], rough)
+        g.add_sphere((i * 6.0 - 9.0, 6.0, 0.0), 2.0, m)
+    b.lights.env = lt.make_env_dusk()
+    cam = cam_mod.make_camera((1280, 800), 60.0)
+    b.camera = cam_mod.looking_at(cam, (0, 0, -24), (0, 0, 0), (0, 1, 0))
+    return b.build()
+
+
+PRESETS = {
+    "cornell_box": cornell_box,
+    "quad": quad,
+    "quad_light": quad_light,
+    "two_perlin_spheres": two_perlin_spheres,
+    "earth": earth,
+    "mixed_spheres": mixed_spheres,
+    "plates": plates,
+    "env_mapped": env_mapped,
+}

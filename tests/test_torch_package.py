@@ -12,6 +12,7 @@ import torch
 import pbrs_tpu_torch
 from pbrs_tpu_torch import kernels
 from pbrs_tpu_torch.accel import fused_kernel as fk
+from pbrs_tpu_torch.accel import fused_single_lobe as fsl
 from pbrs_tpu_torch.accel import trace_kernel as tk
 from pbrs_tpu_torch.geometry import ray as ray_mod
 
@@ -62,12 +63,14 @@ def test_kernel_sources_listed_and_flags():
     listed = {p.name for p in kernels.source_paths()}
     on_disk = {f for f in os.listdir(kernels.CSRC)
                if f.endswith((".cu", ".cuh"))}
-    assert listed == on_disk and {"trace_flat.cu", "fused_bounce.cu"} <= listed
+    assert listed == on_disk and {"trace_flat.cu", "fused_bounce.cu",
+                                  "fused_single_lobe.cu"} <= listed
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-fmad=false" in flags and "fast_math" not in flags
     replaced = {"trace_flat.cu": "trace_pallas.py:_trace_kernel",
-                "fused_bounce.cu": "fused_kernel.py:_bounce_kernel"}
+                "fused_bounce.cu": "fused_kernel.py:_bounce_kernel",
+                "fused_single_lobe.cu": "fused_single_lobe.py:_bounce2_kernel"}
     for name, pallas in replaced.items():
         assert pallas in (kernels.CSRC / name).read_text()
     # The library name follows the sources' content hash.
@@ -97,4 +100,12 @@ def test_wrappers_take_no_other_device():
 
 
 def test_launch_counters_start_at_zero():
-    assert tk.LAUNCHES == 0 and fk.LAUNCHES == 0
+    assert tk.LAUNCHES == 0 and fk.LAUNCHES == 0 and fsl.LAUNCHES == 0
+
+
+def test_every_source_is_compiled_on_its_own():
+    """One nvcc per source (started together), with the ptxas report."""
+    assert set(kernels.SOURCES) == {p.name for p in kernels.source_paths()
+                                    if p.suffix == ".cu"}
+    assert "-shared" not in kernels.NVCC_FLAGS
+    assert kernels.ptxas_log_path().suffix == ".log"

@@ -58,7 +58,8 @@ def test_render_image_matches_reference():
     assert stats.camera_rays == 4 * 16 * 16 and stats.traced_rays > 0
     # Chunked lanes (three chunks, the last padded) give the same image.
     chunked, _ = render.render_image(tscene, spp=4, max_depth=5, seed=1,
-                                     chunk_pixels=100, route="general")
+                                     chunk_pixels=100, route="general",
+                                     device="cpu")
     np.testing.assert_allclose(chunked, got, atol=2e-5, rtol=1e-4)
 
 
@@ -74,11 +75,33 @@ def test_cli_writes_exr(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--pbrt_file", "scene.pbrt"],
-                                  ["--scene_name", "plates"],
+                                  ["--scene_name", "mesh_ball"],
                                   ["--integrator", "direct"]])
 def test_cli_refuses_unported(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(argv)
+
+
+def test_cli_renders_plates_on_cpu(tmp_path, capsys):
+    out = str(tmp_path / "plates.exr")
+    rc = cli.main(["--scene_name", "plates", "--resolution", "16x16",
+                   "--msaa", "1", "--depth", "3", "--output", out,
+                   "--device", "cpu"])
+    img = image.read_exr(out)
+    assert rc == 0 and img.shape == (16, 16, 3)
+    assert np.isfinite(img).all() and img.mean() > 0
+    assert "plain path on cpu" in capsys.readouterr().out
+
+
+def test_card_is_the_default(monkeypatch):
+    """Without a CUDA device the entry points refuse rather than fall back
+    to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = cli.with_resolution(presets.cornell_box(), 8, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        render.render_image(scene, spp=1)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        cli.main(["--resolution", "8x8"])
 
 
 def test_unported_integrator_and_route_raise():

@@ -101,6 +101,11 @@ def test_camera_rays_match(sample):
 def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="add_mesh"):
         GeometryBuilder().add_mesh(np.zeros((3, 3)), [(0, 1, 2)], 0)
-    assert set(presets.PRESETS) == {"cornell_box"}
-    with pytest.raises(NotImplementedError, match="eval_texture"):
-        buffers.SceneBuilder().materials.add_lambertian(tex_id=0)
+    assert set(presets.PRESETS) == {
+        "cornell_box", "quad", "quad_light", "two_perlin_spheres", "earth",
+        "mixed_spheres", "plates", "env_mapped"}
+    b = buffers.SceneBuilder()
+    with pytest.raises(NotImplementedError, match="image textures"):
+        b.textures.add_image(np.zeros((2, 2, 3)))
+    with pytest.raises(NotImplementedError, match="Oren-Nayar"):
+        b.materials.add_matte((0.5, 0.5, 0.5), sigma_deg=20.0)
