@@ -1,19 +1,27 @@
-"""Flat-table closest-hit / occlusion trace (kernel K1). Mirrors
-pbrs_tpu/accel/trace_pallas.py: ``prim_scalars`` and the
-``PallasTracer.trace/occluded`` contract of ``_trace_kernel``.
+"""Flat-table closest-hit / occlusion trace (kernel K1) and the tracer
+that joins it with the per-family BVH tracer (K5). Mirrors
+pbrs_tpu/accel/trace_pallas.py: ``prim_scalars``, ``_partition_big`` and
+``PallasTracer`` (here ``Tracer``), the ``trace/occluded`` contract of
+``_trace_kernel``.
 
 The CUDA kernel (``csrc/trace_flat.cu``) runs one thread per ray over SoA
 planes with the [P,16] primitive bank staged in shared memory. Its plain
 version, ``trace_reference``, is the same sweep as a broadcast [N, P]
-tensor program with the kernel's arithmetic, op for op. ``trace`` and
-``occluded`` take the kernel for CUDA tensors and the plain version for
-CPU tensors; they never fall back from one to the other.
+tensor program with the kernel's arithmetic, op for op.
 
-Families above TREELET_THRESHOLD primitives need the BVH tracer, which is
-not ported yet: the CUDA path raises for them.
+``Tracer`` hands every family above TREELET_THRESHOLD primitives (or
+``bvh_threshold``) to a BVH family tracer (accel/treelet.py, kernel K5),
+keeps the rest in the flat bank, and splits a mixed-scale family by area:
+its few big primitives stay in the bank, the dense rest goes to K5. Ids
+stay global on both sides (bank column 15, the family tracer's id map).
+Its ``trace`` and ``occluded`` launch the kernels for CUDA tensors and
+take their plain versions for CPU tensors; they never fall back from one
+to the other.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -21,6 +29,7 @@ import torch
 from .. import kernels
 from ..geometry import ray as ray_mod
 from ..shapes.tables import GeometryTables
+from . import treelet
 
 TREELET_THRESHOLD = 1024
 T_MIN = ray_mod.T_MIN
@@ -33,34 +42,56 @@ BANK_COLS = 16
 LAUNCHES = 0
 
 
-def prim_scalars(geom: GeometryTables):
-    """The primitive bank [P, 16] float32 (on geom's device) and the row
-    count of each family (spheres, quads, tris, disks).
+def _host(geom: GeometryTables):
+    return {f.name: getattr(geom, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(geom)}
+
+
+def prim_scalars(geom: GeometryTables, include=(True, True, True, True),
+                 subsets=None):
+    """The primitive bank [P, 16] float32 (on geom's device) and its row
+    count per family (spheres, quads, tris, disks).
 
     Rows: sphere (center, r); quad (origin, u, v, n = u x v, |n|^2); tri
     (p0, p1, p2, unit normal, zero for degenerate); disk (center, normal,
-    |radial|^2). Column 15 holds the global prim id."""
-    g = {k: getattr(geom, k).detach().cpu().numpy() for k in (
-        "sph_center", "sph_radius", "quad_origin", "quad_u", "quad_v",
-        "tri_p0", "tri_p1", "tri_p2", "disk_center", "disk_normal",
-        "disk_radial")}
+    |radial|^2). Column 15 holds the global prim id, so the bank may hold
+    any subset of a family: `include` leaves whole families out (those a
+    BVH family tracer takes) and `subsets` gives per-family index arrays
+    (the flat side of a big/small partition). An empty bank is one row with
+    id -1 and counts of 0."""
+    g = _host(geom)
+    fam = geom.counts
+    if sum(fam) >= 1 << 24:
+        raise ValueError("the float32 id column holds ids below 2^24, got "
+                         f"{sum(fam)} prims")
+    base = np.cumsum((0,) + tuple(fam[:3]))
+    subsets = subsets or (None,) * 4
+    sel = [(np.arange(fam[i]) if subsets[i] is None
+            else np.asarray(subsets[i], np.int64)) if include[i]
+           else np.zeros(0, np.int64) for i in range(4)]
     rows = []
-    for c, r in zip(g["sph_center"], g["sph_radius"]):
-        rows.append([*c, r] + [0.0] * 11)
-    for o, u, v in zip(g["quad_origin"], g["quad_u"], g["quad_v"]):
+    for c, r, gid in zip(g["sph_center"][sel[0]], g["sph_radius"][sel[0]],
+                         base[0] + sel[0]):
+        rows.append([*c, r] + [0.0] * 11 + [float(gid)])
+    for o, u, v, gid in zip(g["quad_origin"][sel[1]], g["quad_u"][sel[1]],
+                            g["quad_v"][sel[1]], base[1] + sel[1]):
         n = np.cross(u, v)
         n2 = max(float((n * n).sum()), 1e-30)
-        rows.append([*o, *u, *v, *n, n2] + [0.0] * 2)
-    for p0, p1, p2 in zip(g["tri_p0"], g["tri_p1"], g["tri_p2"]):
+        rows.append([*o, *u, *v, *n, n2] + [0.0] * 2 + [float(gid)])
+    for p0, p1, p2, gid in zip(g["tri_p0"][sel[2]], g["tri_p1"][sel[2]],
+                               g["tri_p2"][sel[2]], base[2] + sel[2]):
         n = np.cross(p0 - p1, p2 - p1)
         ln = np.linalg.norm(n)
         n = n / ln if ln > 0 else np.zeros(3)
-        rows.append([*p0, *p1, *p2, *n] + [0.0] * 3)
-    for c, n, r in zip(g["disk_center"], g["disk_normal"], g["disk_radial"]):
-        rows.append([*c, *n, float((r * r).sum())] + [0.0] * 8)
-    bank = np.asarray([row + [float(i)] for i, row in enumerate(rows)],
-                      np.float32)
-    return torch.from_numpy(bank).to(geom.quad_origin.device), geom.counts
+        rows.append([*p0, *p1, *p2, *n] + [0.0] * 3 + [float(gid)])
+    for c, n, r, gid in zip(g["disk_center"][sel[3]], g["disk_normal"][sel[3]],
+                            g["disk_radial"][sel[3]], base[3] + sel[3]):
+        rows.append([*c, *n, float((r * r).sum())] + [0.0] * 8 + [float(gid)])
+    if not rows:
+        rows.append([0.0] * 15 + [-1.0])
+    bank = np.asarray(rows, np.float32)
+    return (torch.from_numpy(bank).to(geom.quad_origin.device),
+            tuple(len(s) for s in sel))
 
 
 # ------------------------------ plain version -----------------------------
@@ -199,11 +230,6 @@ def _check_bank(bank, counts):
                          f"{bank.device}")
     if len(counts) != 4 or sum(counts) != bank.shape[0]:
         raise ValueError(f"counts {counts} do not cover {bank.shape[0]} rows")
-    if max(counts) > TREELET_THRESHOLD:
-        raise NotImplementedError(
-            f"a family of {max(counts)} primitives needs the treelet BVH "
-            "tracer (pbrs_tpu.accel.treelet), not ported to pbrs_tpu_torch "
-            "yet")
     max_rows = kernels.lib().pbrs_max_bank_rows()
     if bank.shape[0] > max_rows:
         raise ValueError(f"bank of {bank.shape[0]} rows exceeds the "
@@ -235,12 +261,6 @@ def trace_planes(bank, counts, planes, any_hit: bool = False):
     return t, ids
 
 
-def _planes(rays: ray_mod.RayBatch):
-    o, d = rays.origin, rays.dir
-    return torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
-                        rays.t_max]).contiguous()
-
-
 def _device_kind(rays):
     kind = rays.origin.device.type
     if kind not in ("cpu", "cuda"):
@@ -248,17 +268,118 @@ def _device_kind(rays):
     return kind
 
 
-def trace(bank, counts, rays: ray_mod.RayBatch):
-    """Closest hit: (t [N], global prim id [N]); inf / -1 on a miss. CUDA
-    tensors launch K1, CPU tensors take trace_reference."""
-    if _device_kind(rays) == "cpu":
-        return trace_reference(bank, counts, rays)
-    return trace_planes(bank, counts, _planes(rays))
+# ------------------------- flat bank + BVH families ------------------------
+
+# Big/small partition bounds (trace_pallas.py:314-315): at most this many
+# "big" prims stay in the flat bank, and a prim counts as big when its area
+# exceeds this multiple of the family's median.
+PARTITION_MAX_FLAT = 256
+PARTITION_AREA_FACTOR = 32.0
 
 
-def occluded(bank, counts, rays: ray_mod.RayBatch):
-    """Any hit within the ray extent -> bool [N]."""
-    if _device_kind(rays) == "cpu":
-        return torch.isfinite(trace_reference(bank, counts, rays)[0])
-    t, _ = trace_planes(bank, counts, _planes(rays), any_hit=True)
-    return torch.isfinite(t)
+def _partition_big(area, thresh):
+    """Split a family by area into (big_ids, small_ids), or (None, None)
+    when a partition would not pay: the big side must be small enough for
+    the flat sweep and the small side big enough to want a BVH. When more
+    prims clear the area factor than the flat bank takes, the largest
+    PARTITION_MAX_FLAT stay flat."""
+    n = area.shape[0]
+    pos = area[area > 0]
+    if pos.size == 0:
+        return None, None
+    med = float(np.median(pos))
+    if med <= 0:
+        return None, None
+    big = area > PARTITION_AREA_FACTOR * med
+    n_big = int(big.sum())
+    if n_big > PARTITION_MAX_FLAT:
+        order = np.argsort(area)[::-1][:PARTITION_MAX_FLAT]
+        big = np.zeros(n, bool)
+        big[order] = True
+        n_big = PARTITION_MAX_FLAT
+    if n_big == 0 or (n - n_big) <= thresh:
+        return None, None
+    return np.nonzero(big)[0], np.nonzero(~big)[0]
+
+
+class Tracer:
+    """Closest-hit / any-hit queries against a GeometryTables snapshot
+    (trace_pallas.py:PallasTracer): families above the threshold go to BVH
+    family tracers (K5), the rest to the flat bank (K1), and the two
+    results merge by the closer t."""
+
+    def __init__(self, geom: GeometryTables,
+                 bvh_threshold: int | None = None):
+        thresh = TREELET_THRESHOLD if bvh_threshold is None else bvh_threshold
+        dev = geom.quad_origin.device
+        g = _host(geom)
+        n_sph, n_quad, n_tri, n_disk = geom.counts
+        base_quad, base_tri = n_sph, n_sph + n_quad
+        base_disk = base_tri + n_tri
+        self.families = []
+        include = [True, True, True, True]
+        subsets = [None, None, None, None]
+        if n_sph > thresh:
+            self.families.append(treelet.sphere_tracer(
+                g["sph_center"], g["sph_radius"], 0, device=dev))
+            include[0] = False
+        if n_quad > thresh:
+            o, u, v = g["quad_origin"], g["quad_u"], g["quad_v"]
+            big, small = _partition_big(
+                np.linalg.norm(np.cross(u, v), axis=1), thresh)
+            if big is None:
+                self.families.append(treelet.quad_tracer(o, u, v, base_quad,
+                                                         device=dev))
+                include[1] = False
+            else:
+                self.families.append(treelet.quad_tracer(
+                    o[small], u[small], v[small], base_quad + small,
+                    device=dev))
+                subsets[1] = big
+        if n_tri > thresh:
+            p0, p1, p2 = g["tri_p0"], g["tri_p1"], g["tri_p2"]
+            big, small = _partition_big(
+                0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0), axis=1),
+                thresh)
+            if big is None:
+                self.families.append(treelet.tri_tracer(p0, p1, p2, base_tri,
+                                                        device=dev))
+                include[2] = False
+            else:
+                self.families.append(treelet.tri_tracer(
+                    p0[small], p1[small], p2[small], base_tri + small,
+                    device=dev))
+                subsets[2] = big
+        if n_disk > thresh:
+            self.families.append(treelet.disk_tracer(
+                g["disk_center"], g["disk_normal"], g["disk_radial"],
+                base_disk, device=dev))
+            include[3] = False
+        self.bank, self.counts = prim_scalars(geom, include=tuple(include),
+                                              subsets=tuple(subsets))
+        self.flat_rows = sum(self.counts)
+
+    def trace(self, rays: ray_mod.RayBatch, any_hit: bool = False):
+        """(t [N], global prim id [N] int32), inf / -1 on a miss: K1 and K5
+        on CUDA tensors, their plain versions on CPU tensors."""
+        cpu = _device_kind(rays) == "cpu"
+        planes = None if cpu else ray_mod.to_planes(rays)
+        n = rays.origin.shape[0]
+        if not self.flat_rows:
+            t = torch.full((n,), INF, device=rays.origin.device)
+            idx = torch.full((n,), -1, dtype=torch.int32,
+                             device=rays.origin.device)
+        elif cpu:
+            t, idx = trace_reference(self.bank, self.counts, rays)
+        else:
+            t, idx = trace_planes(self.bank, self.counts, planes, any_hit)
+        for fam in self.families:
+            t2, idx2 = (treelet.trace_reference(fam, rays) if cpu else
+                        treelet.trace_planes(fam, planes, any_hit))
+            closer = t2 < t
+            t = torch.where(closer, t2, t)
+            idx = torch.where(closer, idx2, idx)
+        return t, idx
+
+    def occluded(self, rays: ray_mod.RayBatch):
+        return torch.isfinite(self.trace(rays, any_hit=True)[0])

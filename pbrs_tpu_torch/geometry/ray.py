@@ -43,6 +43,14 @@ def make_rays(origin, dir, t_max=None):
                                           device=origin.device))
 
 
+def to_planes(rays: RayBatch):
+    """SoA ray planes [7, N] (ox, oy, oz, dx, dy, dz, t_max), the layout the
+    trace kernels read."""
+    o, d = rays.origin, rays.dir
+    return torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+                        rays.t_max]).contiguous()
+
+
 def position_at(rays: RayBatch, t):
     return rays.origin + t[..., None] * rays.dir
 

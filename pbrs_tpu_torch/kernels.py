@@ -25,7 +25,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("trace_flat.cu", "fused_bounce.cu", "fused_single_lobe.cu")
+SOURCES = ("trace_flat.cu", "fused_bounce.cu", "fused_single_lobe.cu",
+           "trace_bvh.cu")
 HEADERS = ("trace_flat.cuh", "bounce_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "pbrs_tpu_torch_kernels"
@@ -44,8 +45,10 @@ _SIGNATURES = {
                                _VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _I,
                                _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP,
                                _VP, _VP],
+    "pbrs_trace_bvh": [_VP, _VP, _VP, _I, _VP, _I, _VP, _VP, _I, _VP],
     "pbrs_error_string": [_I],
     "pbrs_max_bank_rows": [],
+    "pbrs_bvh_max_stack": [],
 }
 
 _lib = None

@@ -2,6 +2,8 @@
 
     python -m pbrs_tpu_torch.profiling --scene_name plates \\
         --resolution 1024x1024 --depth 5 --msaa 2 --route auto general
+    python -m pbrs_tpu_torch.profiling --scene_name mesh_ball --levels 5 \\
+        --resolution 800x600 --depth 6 --route auto
 
 For each route: wall time per sample index (host clock around work that
 ends in a synchronize), device busy time per sample (the self device time
@@ -118,6 +120,8 @@ def main(argv=None) -> int:
     p.add_argument("--msaa", type=int, default=2)
     p.add_argument("--samples", type=int, default=4)
     p.add_argument("--route", nargs="+", default=["auto"])
+    p.add_argument("--levels", type=int, default=None,
+                   help="subdivision levels of a mesh preset (mesh_ball)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("pbrs_tpu_torch.profiling: no CUDA device")
@@ -125,7 +129,8 @@ def main(argv=None) -> int:
     from .scene import presets
 
     w, h = (int(x) for x in args.resolution.lower().split("x"))
-    scene = with_resolution(presets.PRESETS[args.scene_name](), w, h).to(
+    kw = {} if args.levels is None else {"levels": args.levels}
+    scene = with_resolution(presets.PRESETS[args.scene_name](**kw), w, h).to(
         "cuda")
     for route in args.route:
         out = profile_route(scene, route, args.depth, args.msaa,
@@ -133,7 +138,8 @@ def main(argv=None) -> int:
         if out["integrator"] == "fused_single_lobe":
             out["k3_per_bounce"] = single_lobe_bounce_ms(scene, args.depth,
                                                          args.msaa)
-        out.update(scene=args.scene_name, resolution=args.resolution,
+        out.update(scene=args.scene_name, levels=args.levels,
+                   resolution=args.resolution,
                    device=torch.cuda.get_device_name(0))
         print(json.dumps(out), flush=True)
     return 0

@@ -7,10 +7,11 @@ index per launch, accumulating into a film. Which integrator runs:
 
 - route "auto": on CUDA, the fused diffuse kernel (K2) when the scene is
   eligible, else the fused single-lobe kernel (K3) when that one is, else
-  the general wavefront tracing through the flat-bank kernel (K1); on the
-  CPU, the general wavefront with the broadcast sweep;
-- route "general": the general wavefront through K1 (its plain version on
-  the CPU);
+  the general wavefront tracing through the flat-bank kernel (K1) and, for
+  every primitive family above the BVH threshold, the BVH kernel (K5); on
+  the CPU, the general wavefront with the broadcast sweep;
+- route "general": the general wavefront through K1 and K5 (their plain
+  versions on the CPU);
 - route "plain": the general wavefront with the broadcast sweep, no kernel.
 """
 
@@ -62,9 +63,11 @@ class Film:
 
 
 def make_integrator(scene, sampler, max_depth: int, msaa: int,
-                    route: str = "auto"):
+                    route: str = "auto", bvh_threshold: int | None = None):
     """(name, fn): fn(pixel_idx, sample_idx) -> (radiance [N,3], traced-ray
-    count). `scene` must already be on its device."""
+    count). `scene` must already be on its device; bvh_threshold overrides
+    the family size above which the general path traces a family with
+    K5."""
     _check_route(route)
     on_cuda = scene.device.type == "cuda"
     fused = None
@@ -80,7 +83,8 @@ def make_integrator(scene, sampler, max_depth: int, msaa: int,
                                         msaa=msaa)
         return name, fused_fn
     use_kernels = route == "general" or (route == "auto" and on_cuda)
-    isect_fn, occl_fn = trace_dispatch.make_trace_fns(scene, use_kernels)
+    isect_fn, occl_fn = trace_dispatch.make_trace_fns(scene, use_kernels,
+                                                      bvh_threshold)
 
     def general_fn(pix, s):
         return wavefront.render_samples(scene, sampler, pix, s, isect_fn,

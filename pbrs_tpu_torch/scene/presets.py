@@ -1,8 +1,8 @@
-"""Preset scenes. Mirrors pbrs_tpu/scene/presets.py for the table scenes:
-cornell_box, quad, quad_light, two_perlin_spheres, earth, mixed_spheres,
-plates and env_mapped (everything, mesh_ball and fourier_plastic wait for
-meshes, Oren-Nayar/substrate and Fourier tables). Presets whose upstream
-image assets are absent use procedural stand-ins, as the JAX package's do.
+"""Preset scenes. Mirrors pbrs_tpu/scene/presets.py: cornell_box, quad,
+quad_light, two_perlin_spheres, earth, mixed_spheres, plates, env_mapped,
+and the mesh scenes everything and mesh_ball (fourier_plastic waits for
+the Fourier tables). Presets whose upstream image assets are absent use
+procedural stand-ins, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -196,6 +196,48 @@ def plates() -> Scene:
     return b.build()
 
 
+def everything(seed: int = 7) -> Scene:
+    """RTweekend-2 final scene: 400 ground cuboids, a quad light, glass,
+    metal and textured spheres and a 1000-ball cluster (the earth texture
+    is a checker stand-in)."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    g = b.geometry
+    ground = b.materials.add_lambertian((0.48, 0.83, 0.53))
+    for i in range(20):
+        for j in range(20):
+            x0 = -1000.0 + i * 100.0
+            z0 = -1000.0 + j * 100.0
+            y1 = rng.random() * 100.0 + 1.0
+            g.add_cuboid((x0, 0, z0), (x0 + 100, y1, z0 + 100), ground)
+
+    light = b.materials.add_diffuse_light((7.0, 7.0, 7.0))
+    g.add_quad((123, 554, 147), (300, 0, 0), (0, 0, 265), light)
+    b.lights.add_area_quad((7.0, 7.0, 7.0), (123, 554, 147), (300, 0, 0),
+                           (0, 0, 265))
+
+    g.add_sphere((260, 150, 45), 50.0, b.materials.add_dielectric(1.5))
+    g.add_sphere((0, 150, 145), 50.0,
+                 b.materials.add_metal(SILVER[0], SILVER[1], 1.0))
+    g.add_sphere((360, 150, 145), 70.0, b.materials.add_dielectric(1.5))
+
+    checker = b.textures.add_checker((0.2, 0.3, 0.1), (0.9, 0.9, 0.9))
+    g.add_sphere((400, 200, 400), 100.0, b.materials.add_lambertian(tex_id=checker))
+    perlin = b.textures.add_perlin(10.0)
+    g.add_sphere((220, 280, 300), 80.0, b.materials.add_lambertian(tex_id=perlin))
+
+    white = b.materials.add_lambertian((0.73, 0.73, 0.73))
+    t_pp = tf.compose(tf.translate((-100, 270, 395)), tf.rotate_y(15.0))
+    for _ in range(1000):
+        c = rng.random(3) * 165.0
+        g.add_sphere(c, 10.0, white, transform=t_pp)
+
+    b.lights.env = DARK_ROOM
+    cam = cam_mod.make_camera((800, 800), 40.0)
+    b.camera = cam_mod.looking_at(cam, (478, 278, -600), (278, 278, 0), (0, 1, 0))
+    return b.build()
+
+
 def env_mapped() -> Scene:
     """Mirror + metal spheres under an environment."""
     b = SceneBuilder()
@@ -210,6 +252,55 @@ def env_mapped() -> Scene:
     return b.build()
 
 
+def _icosphere(levels=3):
+    """Procedural test mesh: Loop-subdivided octahedron, projected to the
+    unit sphere (mesh asset stand-in; reference PLY assets are absent)."""
+    from . import subdivision
+
+    pos = np.array(
+        [[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1], [0, 0, -1]],
+        np.float32,
+    )
+    idx = np.array(
+        [[0, 2, 4], [2, 1, 4], [1, 3, 4], [3, 0, 4],
+         [2, 0, 5], [1, 2, 5], [3, 1, 5], [0, 3, 5]], np.int64
+    )
+    pos, idx = subdivision.loop_subdivide(pos, idx, levels)
+    pos = pos / np.linalg.norm(pos, axis=1, keepdims=True)
+    return pos, idx
+
+
+def mesh_ball(levels: int = 4) -> Scene:
+    """Triangle-mesh scene: a smooth-shaded mesh ball (matte) and a glass
+    mesh ball, 8 * 4^levels triangles each, over a checkered floor under a
+    quad light."""
+    from .ply import compute_vertex_normals
+
+    b = SceneBuilder()
+    checker = b.textures.add_checker((0.8, 0.8, 0.8), (0.2, 0.25, 0.3))
+    floor = b.materials.add_lambertian(tex_id=checker)
+    matte = b.materials.add_lambertian((0.7, 0.3, 0.25))
+    glass = b.materials.add_dielectric(1.5)
+    light_c = (12.0, 12.0, 12.0)
+    light = b.materials.add_diffuse_light(light_c)
+
+    g = b.geometry
+    g.add_quad((-10, 0, -10), (20, 0, 0), (0, 0, 20), floor)
+    pos, idx = _icosphere(levels)
+    nrm = compute_vertex_normals(pos, idx)
+    t1 = tf.compose(tf.translate((-1.3, 1.0, 0.0)))
+    g.add_mesh(pos, idx, matte, normals=nrm, transform=t1)
+    t2 = tf.compose(tf.translate((1.3, 1.0, 0.0)))
+    g.add_mesh(pos, idx, glass, normals=nrm, transform=t2)
+    g.add_quad((-1.5, 6.0, -1.5), (3.0, 0, 0), (0, 0, 3.0), light)
+    b.lights.add_area_quad(light_c, (-1.5, 6.0, -1.5), (3.0, 0, 0), (0, 0, 3.0))
+    b.lights.env = DARK_ROOM
+
+    cam = cam_mod.make_camera((800, 600), 35.0)
+    b.camera = cam_mod.looking_at(cam, (0, 2.2, -7.5), (0, 1.0, 0), (0, 1, 0))
+    return b.build()
+
+
 PRESETS = {
     "cornell_box": cornell_box,
     "quad": quad,
@@ -218,5 +309,7 @@ PRESETS = {
     "earth": earth,
     "mixed_spheres": mixed_spheres,
     "plates": plates,
+    "everything": everything,
     "env_mapped": env_mapped,
+    "mesh_ball": mesh_ball,
 }

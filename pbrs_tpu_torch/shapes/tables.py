@@ -2,7 +2,8 @@
 Mirrors pbrs_tpu/shapes/tables.py.
 
 Instance transforms are baked into world-space primitives grouped by
-type: spheres, quads (cuboids become 6 quads), triangles and disks, each
+type: spheres, quads (cuboids become 6 quads), triangles (meshes become
+one triangle per face) and disks, each
 with a per-primitive material id. Built in NumPy on the host; `.to(device)`
 moves every table at once.
 """
@@ -140,10 +141,21 @@ class GeometryBuilder:
         uv = [np.asarray(x, np.float32) for x in uvs]
         self.tris.append((*p, *n, *uv, mat))
 
-    def add_mesh(self, *args, **kwargs):
-        raise NotImplementedError(
-            "pbrs_tpu.shapes.tables.GeometryBuilder.add_mesh is not ported "
-            "to pbrs_tpu_torch yet")
+    def add_mesh(self, positions, indices, mat: int, normals=None, uvs=None,
+                 transform=None):
+        """An indexed triangle soup, one add_triangle per face with its
+        vertices' normals and uvs (families above the trace threshold go to
+        the BVH tracer, accel/treelet.py)."""
+        positions = np.asarray(positions, np.float32)
+        normals = None if normals is None else np.asarray(normals, np.float32)
+        uvs = None if uvs is None else np.asarray(uvs, np.float32)
+        for (i, j, k) in np.asarray(indices, np.int64):
+            self.add_triangle(
+                positions[i], positions[j], positions[k], mat,
+                normals=None if normals is None else (
+                    normals[i], normals[j], normals[k]),
+                uvs=None if uvs is None else (uvs[i], uvs[j], uvs[k]),
+                transform=transform)
 
     def add_disk(self, center, normal, radial, mat: int, transform=None):
         center = np.asarray(center, np.float32)

@@ -14,6 +14,7 @@ from pbrs_tpu_torch import kernels
 from pbrs_tpu_torch.accel import fused_kernel as fk
 from pbrs_tpu_torch.accel import fused_single_lobe as fsl
 from pbrs_tpu_torch.accel import trace_kernel as tk
+from pbrs_tpu_torch.accel import treelet as tl
 from pbrs_tpu_torch.geometry import ray as ray_mod
 
 PKG = os.path.dirname(pbrs_tpu_torch.__file__)
@@ -64,13 +65,15 @@ def test_kernel_sources_listed_and_flags():
     on_disk = {f for f in os.listdir(kernels.CSRC)
                if f.endswith((".cu", ".cuh"))}
     assert listed == on_disk and {"trace_flat.cu", "fused_bounce.cu",
-                                  "fused_single_lobe.cu"} <= listed
+                                  "fused_single_lobe.cu",
+                                  "trace_bvh.cu"} <= listed
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-fmad=false" in flags and "fast_math" not in flags
     replaced = {"trace_flat.cu": "trace_pallas.py:_trace_kernel",
                 "fused_bounce.cu": "fused_kernel.py:_bounce_kernel",
-                "fused_single_lobe.cu": "fused_single_lobe.py:_bounce2_kernel"}
+                "fused_single_lobe.cu": "fused_single_lobe.py:_bounce2_kernel",
+                "trace_bvh.cu": "treelet.py:_treelet_kernel"}
     for name, pallas in replaced.items():
         assert pallas in (kernels.CSRC / name).read_text()
     # The library name follows the sources' content hash.
@@ -86,13 +89,13 @@ def test_wrappers_take_no_other_device():
     """A tensor on neither the CPU nor CUDA raises: no quiet fallback."""
     from pbrs_tpu_torch.scene import presets
 
-    bank, counts = tk.prim_scalars(presets.cornell_box().geom)
+    tracer = tk.Tracer(presets.cornell_box().geom)
     rays = ray_mod.make_rays(torch.zeros(4, 3, device="meta"),
                              torch.ones(4, 3, device="meta"))
     with pytest.raises(ValueError):
-        tk.trace(bank, counts, rays)
+        tracer.trace(rays)
     with pytest.raises(ValueError):
-        tk.occluded(bank, counts, rays)
+        tracer.occluded(rays)
     fin = torch.zeros(9, 4, device="meta")
     with pytest.raises(ValueError):
         fk.bounce(None, fin, None, None, None, None, seed=0, bounce=0,
@@ -101,6 +104,7 @@ def test_wrappers_take_no_other_device():
 
 def test_launch_counters_start_at_zero():
     assert tk.LAUNCHES == 0 and fk.LAUNCHES == 0 and fsl.LAUNCHES == 0
+    assert tl.LAUNCHES == 0
 
 
 def test_every_source_is_compiled_on_its_own():

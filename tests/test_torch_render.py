@@ -75,7 +75,7 @@ def test_cli_writes_exr(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [["--pbrt_file", "scene.pbrt"],
-                                  ["--scene_name", "mesh_ball"],
+                                  ["--scene_name", "fourier_plastic"],
                                   ["--integrator", "direct"]])
 def test_cli_refuses_unported(argv):
     with pytest.raises(SystemExit, match="not yet ported"):

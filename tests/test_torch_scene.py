@@ -99,12 +99,12 @@ def test_camera_rays_match(sample):
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="add_mesh"):
-        GeometryBuilder().add_mesh(np.zeros((3, 3)), [(0, 1, 2)], 0)
+    b = buffers.SceneBuilder()
+    with pytest.raises(NotImplementedError, match="add_instance_group"):
+        b.add_instance_group(None)
     assert set(presets.PRESETS) == {
         "cornell_box", "quad", "quad_light", "two_perlin_spheres", "earth",
-        "mixed_spheres", "plates", "env_mapped"}
-    b = buffers.SceneBuilder()
+        "mixed_spheres", "plates", "env_mapped", "everything", "mesh_ball"}
     with pytest.raises(NotImplementedError, match="image textures"):
         b.textures.add_image(np.zeros((2, 2, 3)))
     with pytest.raises(NotImplementedError, match="Oren-Nayar"):

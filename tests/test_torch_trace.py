@@ -60,8 +60,7 @@ def _rays(n, seed, bounded=False):
 def test_trace_matches_pallas_and_jnp(scene):
     jgeom, tgeom = _geoms(scene)
     jr, tr = _rays(1024, 0)
-    bank, counts = tk.prim_scalars(tgeom)
-    t_t, id_t = (x.numpy() for x in tk.trace(bank, counts, tr))
+    t_t, id_t = (x.numpy() for x in tk.Tracer(tgeom).trace(tr))
     t_p, id_p = (np.asarray(x) for x in
                  jtp.PallasTracer(jgeom, interpret=True).trace(jr))
     hit_j = jim.intersect(jgeom, jr)
@@ -85,8 +84,7 @@ def test_trace_matches_pallas_and_jnp(scene):
 def test_occlusion_matches(scene):
     jgeom, tgeom = _geoms(scene)
     jr, tr = _rays(1024, 3, bounded=True)
-    bank, counts = tk.prim_scalars(tgeom)
-    occ_t = tk.occluded(bank, counts, tr).numpy()
+    occ_t = tk.Tracer(tgeom).occluded(tr).numpy()
     occ_p = np.asarray(jtp.PallasTracer(jgeom, interpret=True).occluded(jr))
     occ_j = np.asarray(jim.occluded(jgeom, jr))
     assert (occ_t == occ_p).mean() >= 0.999
@@ -129,6 +127,5 @@ def test_dead_rays_miss():
     _, tgeom = _geoms("cornell")
     _, tr = _rays(64, 7)
     tr = tr.replace(t_max=torch.zeros(64))
-    bank, counts = tk.prim_scalars(tgeom)
-    t, ids = tk.trace(bank, counts, tr)
+    t, ids = tk.Tracer(tgeom).trace(tr)
     assert torch.isinf(t).all() and (ids == -1).all()
