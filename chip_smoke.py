@@ -8,11 +8,14 @@ ptxas reports for them and which host BVH builder runs, checks each kernel
 against its plain PyTorch version on the card, renders golden checksums
 through the kernels, drives the main paths through the port's routes --
 Cornell 1024^2, depth 8, msaa 2 (fused diffuse kernel K2), plates 1024^2,
-depth 5, msaa 2 (fused single-lobe kernel K3), and the mesh scenes through
-the general path with the flat trace (K1) and the BVH trace (K5):
+depth 5, msaa 2 (fused single-lobe kernel K3), the mesh scenes
 mesh_ball(levels=5) 800x600, depth 6, and everything 800x800, depth 5,
-msaa 2, PCG seed 0 -- and runs the CLI. Every phase prints
-one line or more; a failing phase raises, so the script exits non-zero.
+through the wave path (shade kernel K4) and the general path, both tracing
+with the flat trace (K1) and the BVH trace (K5), and the PBRT interior
+(scenes/interior/interior.pbrt) 1024^2, depth 5, through K4 and the general
+path, plus one timed sample of its 1920x1080, depth-8 cell; msaa 2, PCG
+seed 0 -- and runs the CLI. Every phase prints one line or more; a failing
+phase raises, so the script exits non-zero.
 There is no CPU path: without a CUDA device the script fails. The line
 before the last is {"kernels": [...]}, one entry per kernel with its
 launches on its main path, error against its plain version, device time,
@@ -20,6 +23,8 @@ plain time and bound; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -34,6 +39,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_REL_TOL = 2e-3  # tests/test_golden.py REL_TOL
 ATOL, RTOL = 2e-5, 1e-4  # tests/test_fused.py:38
 K3_ATOL, K3_RTOL = 3e-5, 2e-4  # tests/test_fused_single_lobe.py:73
+K4_ATOL, K4_RTOL = 3e-5, 2e-4  # tests/test_fused_wave.py:84-100
+# Wave vs general on lanes that reach a Perlin-marble surface (phase 17):
+# at most this share of them outside atol K4_ATOL, rtol MARBLE_RTOL. On
+# everything at full width 472 of 40479 (1.17%) are outside (NVIDIA H100,
+# sample 0; PERF.md section 6): the limit leaves less than 2x room.
+MARBLE_RTOL, MARBLE_SHARE = 1e-2, 0.02
 N_RAYS = 1 << 20
 SIZE, DEPTH, MSAA = 1024, 8, 2  # bench.py workload
 PLATES_DEPTH = 5  # benchmarks.py plates_mis_microfacet_1024
@@ -139,7 +150,8 @@ def phase_build():
     log = kernels.ptxas_log_path()
     if log.exists():
         for line in log.read_text().splitlines():
-            if line.startswith("==") or "registers" in line or "spill" in line:
+            if (line.startswith("==") or "registers" in line or "spill" in line
+                    or "Compiling entry function" in line):
                 print(f"phase 1 ptxas: {line.strip()}")
     from pbrs_tpu_torch.accel import bvh, native
 
@@ -437,6 +449,22 @@ def phase_cli():
     print(f"phase 6 cli: rc {rc}, image {img.shape}, mean {img.mean():.5f}")
     if not ok:
         raise AssertionError("the CLI render is not a finite, lit image")
+    # The interior through the CLI's --pbrt_file, on route auto (K4).
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "interior.png")
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            rc = cli.main(["--pbrt_file", os.path.join(
+                REPO, "scenes", "interior", "interior.pbrt"), "--resolution",
+                "480x270", "--msaa", "1", "--depth", "5", "--output", out])
+        img = image.read_png(out)
+    last = said.getvalue().strip().splitlines()[-2]
+    print(f"phase 6 cli --pbrt_file interior: rc {rc}, image {img.shape}, "
+          f"mean {img.mean():.3f}; {last}")
+    if (rc != 0 or img.shape != (270, 480, 3) or float(img.mean()) <= 0
+            or "fused_wave path" not in last):
+        raise AssertionError("the CLI's interior render did not go through "
+                             "K4 to a lit image")
 
 
 # ---------------------- K3: the fused single-lobe bounce ---------------------
@@ -715,16 +743,19 @@ def mesh_scene(name):
 
 
 def main_path_launches(dev, scene, depth):
-    """Every K1 and K5 launch of sample 0 of a scene's main path (route
+    """Every K1, K4 and K5 launch of sample 0 of a scene's main path (route
     auto, at full width), kept with its inputs: {"k1": [(bank, counts,
-    planes, any_hit)], "k5": [(family tracer, planes, any_hit)]}."""
+    planes, any_hit)], "k5": [(family tracer, planes, any_hit)], "k4":
+    [(tables, fin, iin, keywords)]}."""
     from pbrs_tpu_torch import render
+    from pbrs_tpu_torch.accel import fused_wave as fw
     from pbrs_tpu_torch.accel import trace_kernel as tk
     from pbrs_tpu_torch.accel import treelet as tl
     from pbrs_tpu_torch.core import sampler as smp
 
-    seen = {"k1": [], "k5": []}
-    launch_k1, launch_k5 = tk.trace_planes, tl.trace_planes
+    seen = {"k1": [], "k5": [], "k4": []}
+    launch_k1, launch_k5, launch_k4 = (tk.trace_planes, tl.trace_planes,
+                                       fw.shade)
 
     def record_k1(bank, counts, planes, any_hit=False):
         seen["k1"].append((bank, counts, planes, any_hit))
@@ -734,16 +765,22 @@ def main_path_launches(dev, scene, depth):
         seen["k5"].append((fam, planes, any_hit))
         return launch_k5(fam, planes, any_hit)
 
+    def record_k4(tab, fin, iin, count, **kw):
+        seen["k4"].append((tab, fin, iin, kw))
+        return launch_k4(tab, fin, iin, count, **kw)
+
     n = scene.camera.width * scene.camera.height
     pix = torch.arange(n, dtype=torch.int32, device=dev)
     _, step = render.make_integrator(scene, smp.PCGSampler(0), depth, MSAA,
                                      "auto")
-    tk.trace_planes, tl.trace_planes = record_k1, record_k5
+    tk.trace_planes, tl.trace_planes, fw.shade = (record_k1, record_k5,
+                                                   record_k4)
     try:
         step(pix, 0)
         torch.cuda.synchronize()
     finally:
-        tk.trace_planes, tl.trace_planes = launch_k1, launch_k5
+        tk.trace_planes, tl.trace_planes, fw.shade = (launch_k1, launch_k5,
+                                                      launch_k4)
     return seen
 
 
@@ -815,6 +852,24 @@ def bvh_launch_bound(fam, planes, any_hit, rng):
     ms, by = bound(n * (7 * 4 + 8) + tables,
                    scale * (nodes * NODE_OPS + prims * PRIM_OPS[fam.kind]))
     return ms, by, scale * nodes, scale * prims
+
+
+def replay_k1(label, launches, k1_report):
+    """Every K1 launch of a main-path sample (bank, counts, planes, any
+    hit) replayed against the plain version, closest and any hit each."""
+    bad = {"id": 0, "t": 0, "occlusion": 0}
+    for bank, counts, planes, _ in launches:
+        got, err, _ = k1_parity(bank, counts, planes_rays(planes))
+        bad = {k: bad[k] + got[k] for k in bad}
+        k1_report["max_abs_err"] = max(k1_report["max_abs_err"], err)
+    bank, counts = launches[0][:2]
+    print(f"{label} main path, sample 0: {len(launches)} launches of "
+          f"{sorted({p.shape[1] for _, _, p, _ in launches})} lanes on a "
+          f"{bank.shape[0]}-row bank (counts {counts}), closest and any hit "
+          f"each; lanes differing: id {bad['id']}, t (rel>1e-6) {bad['t']}, "
+          f"occlusion {bad['occlusion']}")
+    if any(bad.values()):
+        raise AssertionError(f"K1 disagrees with its plain version: {label}")
 
 
 def phase_bvh(dev, rng, k1_report):
@@ -929,19 +984,7 @@ def phase_bvh(dev, rng, k1_report):
           f"{cuda_ms(lambda: tl.trace_planes(fam, big), 20):.4f} ms")
     # K1 on every flat-bank launch of both main paths.
     for name, seen in launches.items():
-        bad = {"id": 0, "t": 0, "occlusion": 0}
-        bank, counts = seen["k1"][0][:2]
-        for bank, counts, planes, _ in seen["k1"]:
-            got, err, _ = k1_parity(bank, counts, planes_rays(planes))
-            bad = {k: bad[k] + got[k] for k in bad}
-            k1_report["max_abs_err"] = max(k1_report["max_abs_err"], err)
-        print(f"phase 10 K1 {name} main path, sample 0: {len(seen['k1'])} "
-              f"launches on a {bank.shape[0]}-row bank (counts {counts}), "
-              f"closest and any hit each; lanes differing: id {bad['id']}, "
-              f"t (rel>1e-6) {bad['t']}, occlusion {bad['occlusion']}")
-        if any(bad.values()):
-            raise AssertionError(f"K1 disagrees with its plain version on "
-                                 f"{name}'s main path")
+        replay_k1(f"phase 10 K1 {name}", seen["k1"], k1_report)
     ev = launches["everything"]["k1"]
     cb_bank, cb_counts = tk.prim_scalars(cornell(8).to(dev).geom)
     k1_ev = sum(cuda_ms(lambda: tk.trace_planes(b, c, p, a), 5)
@@ -986,24 +1029,27 @@ def phase_bvh_golden(dev):
 
 
 def phase_mesh_main(dev, smi):
-    """The slice's main paths: mesh_ball(levels=5) 800x600, depth 6, and
+    """The mesh main paths: mesh_ball(levels=5) 800x600, depth 6, and
     everything 800x800, depth 5, msaa 2, PCG seed 0, through the auto and
-    general routes. On these scenes both routes are the same path (the
-    general path with K1 and K5), so their checksums must be equal: a
-    repeatability check, not an independent one (phase 10 holds every
-    kernel launch of this path against its plain version). The plain route
-    is left out: its sweep broadcasts [N, P] at P = 16384."""
+    general routes. Route auto takes the wave path (K4 with K1 and K5 for
+    the trace), route general the general wavefront (K1 and K5): two
+    independent implementations of one estimator on the same random
+    streams, so equal checksums are a real check (phase 17 holds them per
+    lane). The plain route is left out: its sweep broadcasts [N, P] at
+    P = 16384."""
+    from pbrs_tpu_torch.accel import fused_wave as fw
     from pbrs_tpu_torch.accel import trace_kernel as tk
     from pbrs_tpu_torch.accel import treelet as tl
 
     tk.LAUNCHES = 0
     tl.LAUNCHES = 0
+    fw.LAUNCHES = 0
     for name, depth in (("mesh_ball", MESH_DEPTH), ("everything", EVERY_DEPTH)):
         scene = mesh_scene(name).to(dev)
         w, h = scene.camera.width, scene.camera.height
         pix = torch.arange(w * h, dtype=torch.int32, device=dev)
         results = {}
-        k1, k5 = tk.LAUNCHES, tl.LAUNCHES
+        k1, k5, k4 = tk.LAUNCHES, tl.LAUNCHES, fw.LAUNCHES
         for route in ("auto", "general"):
             results[route] = run_main_path(scene, route, pix, depth)
         for route, (got, mrays, wall, checksum) in results.items():
@@ -1012,16 +1058,423 @@ def phase_mesh_main(dev, smi):
                   f"{wall * 1e3:.2f} ms/sample, checksum {checksum:.6e} "
                   f"[{smi}]")
         print(f"phase 12 launches on {name}: K1 trace_flat "
-              f"{tk.LAUNCHES - k1}, K5 trace_bvh {tl.LAUNCHES - k5}")
-        if [r[0] for r in results.values()] != ["general", "general"]:
-            raise AssertionError(f"{name} did not take the general path")
-        if tl.LAUNCHES == k5:
-            raise AssertionError(f"{name}: K5 never launched")
+              f"{tk.LAUNCHES - k1}, K5 trace_bvh {tl.LAUNCHES - k5}, K4 "
+              f"fused_wave {fw.LAUNCHES - k4}")
+        if [r[0] for r in results.values()] != ["fused_wave", "general"]:
+            raise AssertionError(f"{name}: routes auto / general did not take "
+                                 f"the wave / general paths")
+        if tl.LAUNCHES == k5 or fw.LAUNCHES == k4:
+            raise AssertionError(f"{name}: K5 or K4 never launched")
         sums = [r[3] for r in results.values()]
         if max(sums) - min(sums) > GOLDEN_REL_TOL * abs(sums[0]):
-            raise AssertionError(f"{name}: two runs of the general path "
-                                 f"disagree on the checksum: {sums}")
+            raise AssertionError(f"{name}: routes disagree on the checksum: "
+                                 f"{sums}")
     return {"trace_bvh": tl.LAUNCHES}
+
+
+# ----------------- K4: the shade kernel, the PBRT interior ------------------
+
+
+def wave_zoo_scene(size):
+    """Everything the wave path adds over K3: substrate (FresnelBlend),
+    sigma > 0 matte (Oren-Nayar), full uber (delta + smooth mixture), image
+    and checker textures, an image environment with its sampling
+    distribution, delta lights and quad / sphere area lights
+    (tests/test_fused_wave.py:21-61)."""
+    from pbrs_tpu_torch.lights import lights
+    from pbrs_tpu_torch.scene.buffers import SceneBuilder
+
+    b = SceneBuilder()
+    g, m = b.geometry, b.materials
+    rng = np.random.default_rng(5)
+    tex_img = b.textures.add_image(rng.random((8, 8, 3)).astype(np.float32))
+    tex_chk = b.textures.add_checker((0.7, 0.7, 0.2), (0.1, 0.1, 0.4))
+    g.add_quad((-12, 0, -12), (24, 0, 0), (0, 0, 24),
+               m.add_lambertian(tex_id=tex_img))
+    g.add_sphere((-4.5, 1, 0), 1.0,
+                 m.add_substrate((0.5, 0.3, 0.2), (0.3, 0.3, 0.3), 0.08))
+    g.add_sphere((-1.5, 1, 0), 1.0, m.add_matte((0.6, 0.5, 0.4),
+                                                sigma_deg=20.0))
+    g.add_sphere((1.5, 1, 0), 1.0, m.add_uber(
+        (0.3, 0.4, 0.5), (0.4, 0.4, 0.4), roughness=0.1, opacity=0.7))
+    g.add_sphere((4.5, 1, 0), 1.0, m.add_dielectric(1.5))
+    g.add_sphere((0.0, 1, -3), 1.0, m.add_mirror((0.9, 0.9, 0.9)))
+    g.add_triangle((-3, 0.01, -5), (0, 0.01, -3), (-1.5, 2.5, -4),
+                   m.add_lambertian(tex_id=tex_chk))
+    light_c, c2 = (6.0, 6.0, 6.0), (8.0, 7.0, 6.0)
+    g.add_quad((-2, 7, -2), (4, 0, 0), (0, 0, 4), m.add_diffuse_light(light_c))
+    b.lights.add_area_quad(light_c, (-2, 7, -2), (4, 0, 0), (0, 0, 4))
+    g.add_sphere((-4, 5, -5), 0.8, m.add_diffuse_light(c2))
+    b.lights.add_area_sphere(c2, (-4, 5, -5), 0.8)
+    b.lights.add_point((6, 5, -6), (40, 35, 30))
+    b.lights.add_distant((0.3, -1.0, 0.2), (0.5, 0.5, 0.55))
+    b.lights.env = lights.make_env_image(
+        rng.random((8, 16, 3)).astype(np.float32), scale=(1.5, 1.5, 1.5))
+    return _view(b, size, 45.0, (0, 4, -14), (0, 1.5, 0))
+
+
+def interior(w, h):
+    """scenes/interior/interior.pbrt through the port's PBRT loader, seen at
+    w x h (benchmarks.py run_config's camera resize)."""
+    from pbrs_tpu_torch import cli
+    from pbrs_tpu_torch.scene.pbrt import loader
+
+    scene = loader.build_scene(os.path.join(REPO, "scenes", "interior",
+                                            "interior.pbrt"))
+    return cli.with_resolution(scene, w, h)
+
+
+class _OpCount:
+    """Counts the float operations of a plain version's tensor program: the
+    elements written by each arithmetic or comparison op on float inputs
+    (the SWEEP_OPS convention). The plain version of K4 evaluates every
+    lobe model and light shape the scene holds on every lane, where a lane
+    of the kernel evaluates its own, so this over-counts what K4 must do."""
+
+    ARITH = {"add", "sub", "rsub", "mul", "div", "neg", "sqrt", "rsqrt",
+             "exp", "log", "sin", "cos", "abs", "clamp_min", "clamp_max",
+             "clamp", "maximum", "minimum", "lt", "le", "gt", "ge", "eq",
+             "ne", "remainder", "reciprocal", "floor", "atan2", "acos",
+             "pow"}
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+        self.ops = 0
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                name = func.overloadpacket.__name__.rstrip("_")
+                first = next((a for a in args if isinstance(a, torch.Tensor)),
+                             None)
+                if (name in outer.ARITH and first is not None
+                        and first.is_floating_point()
+                        and isinstance(out, torch.Tensor)):
+                    outer.ops += out.numel()
+                return out
+
+        self.mode = Mode()
+
+
+def k4_ops(tab, fin, iin, kw):
+    from pbrs_tpu_torch.accel import fused_wave as fw
+
+    counter = _OpCount()
+    with counter.mode:
+        fw.shade_reference(tab, fin, iin, **kw)
+    return counter.ops
+
+
+def k4_compare(tab, fin, iin, kw):
+    """K4 against its plain version on one launch's inputs: lanes outside
+    tolerance (any of the 30 float planes), lanes not bit-equal, lanes
+    whose alive / spec differ, max |d|, and both shadow-ray counts."""
+    from pbrs_tpu_torch.accel import fused_wave as fw
+
+    cnt_k = torch.zeros(1, dtype=torch.int64, device=fin.device)
+    out_k, iout_k = fw.shade(tab, fin, iin, cnt_k, **kw)
+    out_p, iout_p, cnt_p = fw.shade_reference(tab, fin, iin, **kw)
+    torch.cuda.synchronize()
+    close = torch.isclose(out_k, out_p, atol=K4_ATOL, rtol=K4_RTOL,
+                          equal_nan=True).all(dim=0)
+    d = (out_k - out_p).abs().nan_to_num(0.0, posinf=0.0)
+    return {"outside": int((~close).sum()),
+            "not_bit_equal": int((out_k.view(torch.int32)
+                                  != out_p.view(torch.int32)).any(0).sum()),
+            "alive": int((iout_k != iout_p).any(0).sum()),
+            "err": float(d.max()), "rays_k": int(cnt_k), "rays_p": int(cnt_p),
+            "live": int((iin[2] > 0).sum()), "lanes": fin.shape[1]}
+
+
+def phase_wave(dev, seen):
+    """K4 against its plain version on every K4 launch of sample 0 of the
+    interior main path (1024^2, depth 5) and of the wave zoo at 256^2;
+    K4's device time per launch (CUDA events, the device put to sleep
+    first), its plain version's, and the bound, over the interior
+    launches."""
+    from pbrs_tpu_torch.accel import fused_wave as fw
+
+    report = {"max_abs_err": 0.0}
+    zoo = wave_zoo_scene(256).to(dev)
+    if not fw.scene_supports_wave(zoo):
+        raise AssertionError("the wave zoo is not wave-eligible")
+    launches = {"interior": seen["k4"],
+                "zoo": main_path_launches(dev, zoo, 5)["k4"]}
+    for label, rows in launches.items():
+        if not rows:
+            raise AssertionError(f"{label}: no K4 launch on its main path")
+        for i, (tab, fin, iin, kw) in enumerate(rows):
+            got = k4_compare(tab, fin, iin, kw)
+            report["max_abs_err"] = max(report["max_abs_err"], got["err"])
+            print(f"phase 13 K4 {label} launch {i} (bounce {kw['bounce']}, "
+                  f"{tab.n_slots} slots): {got['lanes']} lanes, {got['live']} "
+                  f"alive; outside atol {K4_ATOL} rtol {K4_RTOL}: "
+                  f"{got['outside']}; not bit-equal {got['not_bit_equal']}; "
+                  f"alive/spec differ {got['alive']}; max |d| "
+                  f"{got['err']:.3g}; shadow rays kernel {got['rays_k']} "
+                  f"plain {got['rays_p']}")
+            if (got["outside"] or got["alive"]
+                    or got["rays_k"] != got["rays_p"]):
+                raise AssertionError(f"K4 disagrees with its plain version on "
+                                     f"{label} launch {i}")
+    per = {"ms": [], "plain_ms": [], "bound_ms": [], "bound_by": []}
+    cnt = torch.zeros(1, dtype=torch.int64, device=dev)
+    for i, (tab, fin, iin, kw) in enumerate(launches["interior"]):
+        n = fin.shape[1]
+        ms = cuda_ms(lambda: fw.shade(tab, fin, iin, cnt, **kw), 5)
+        plain_ms = cuda_ms(lambda: fw.shade_reference(tab, fin, iin, **kw), 1)
+        ops = k4_ops(tab, fin, iin, kw)
+        # Each input plane read once and each output written once a lane,
+        # the tables once.
+        moved = n * 4 * (fin.shape[0] + fw.N_INT + fw.N_OUT + 2) + 4 * sum(
+            t.numel() for t in (tab.mats, tab.lights, tab.delta))
+        b_ms, b_by = bound(moved, ops)
+        print(f"phase 13 K4 time, interior launch {i}: {n} lanes, "
+              f"{int((iin[2] > 0).sum())} alive; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+              f"{moved / 1e6:.1f} MB, {ops / n:.0f} plain-version float ops a "
+              f"lane)")
+        for key, v in zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                          (ms, plain_ms, b_ms, b_by)):
+            per[key].append(v)
+    k = len(per["ms"])
+    for key in ("ms", "plain_ms", "bound_ms"):
+        report[key] = sum(per[key]) / k
+    report["bound_by"] = max(set(per["bound_by"]), key=per["bound_by"].count)
+    print(f"phase 13 K4 mean over the {k} interior launches: kernel "
+          f"{report['ms']:.4f} ms, plain {report['plain_ms']:.4f} ms, bound "
+          f"{report['bound_ms']:.4f} ms ({report['bound_by']}); per sample: "
+          f"kernel {sum(per['ms']):.4f} ms")
+    return report
+
+
+def phase_interior_traces(seen, k1_report, k5_report):
+    """Every K1 and K5 launch of sample 0 of the interior main path (the
+    sample whose K4 launches phase 13 replays) against the plain versions:
+    K1 on the flat bank, K5 on the triangle family, closest hit and the
+    concatenated shadow batches, with K5's device time a launch."""
+    from pbrs_tpu_torch.accel import treelet as tl
+
+    if not seen["k1"] or not seen["k5"]:
+        raise AssertionError("the interior main path launched no K1 or K5")
+    replay_k1("phase 13 K1 interior", seen["k1"], k1_report)
+    bad = {"t": 0, "id": 0, "hit": 0, "any-hit": 0}
+    ms_all, plain_all = 0.0, 0.0
+    for i, (fam, planes, any_hit) in enumerate(seen["k5"]):
+        got, err, hits, plain_ms = bvh_compare(fam, planes_rays(planes))
+        bad = {k: bad[k] + got[k] for k in bad}
+        k5_report["max_abs_err"] = max(k5_report["max_abs_err"], err)
+        ms = cuda_ms(lambda: tl.trace_planes(fam, planes, any_hit), 5)
+        ms_all, plain_all = ms_all + ms, plain_all + plain_ms
+        print(f"phase 13 K5 interior launch {i} "
+              f"{'any hit' if any_hit else 'closest'}: {planes.shape[1]} "
+              f"lanes, {int((planes[6] > 0).sum())} live, {hits} hits, "
+              f"{fam.n_prims} prims; lanes differing: t {got['t']}, id "
+              f"{got['id']}, hit mask {got['hit']}, any-hit mask "
+              f"{got['any-hit']}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    print(f"phase 13 K5 interior main path, sample 0: {len(seen['k5'])} "
+          f"launches; lanes differing: t {bad['t']}, id {bad['id']}, hit "
+          f"mask {bad['hit']}, any-hit mask {bad['any-hit']}; per sample: "
+          f"kernel {ms_all:.4f} ms, plain {plain_all:.4f} ms")
+    if any(bad.values()):
+        raise AssertionError("K5 disagrees with its plain version on the "
+                             "interior's main path")
+
+
+def phase_wave_golden(dev):
+    """tests/test_golden.py's everything (32^2, depth 3) and mesh_ball_l2
+    (48^2, depth 4, BVH threshold 64) checksums through route auto, which
+    takes the wave path (K4, with K1 and K5 tracing)."""
+    from pbrs_tpu_torch import cli, render
+    from pbrs_tpu_torch.accel import fused_wave as fw
+    from pbrs_tpu_torch.core import sampler as smp
+    from pbrs_tpu_torch.scene import presets
+
+    with open(os.path.join(REPO, "tests", "golden_checksums.json")) as f:
+        golden = json.load(f)
+    for key, scene, size, depth, thresh in (
+            ("everything", presets.everything(), 32, 3, None),
+            ("mesh_ball_l2", presets.mesh_ball(levels=2), 48, 4, 64)):
+        scene = cli.with_resolution(scene, size, size).to(dev)
+        pix = torch.arange(size * size, dtype=torch.int32, device=dev)
+        fw.LAUNCHES = 0
+        name, fn = render.make_integrator(scene, smp.PCGSampler(0), depth, 2,
+                                          "auto", bvh_threshold=thresh)
+        got = sum(float(fn(pix, s)[0].sum()) for s in range(2))
+        rel = abs(got - golden[key]) / abs(golden[key])
+        print(f"phase 14 golden {key} via {name} (K4 launches {fw.LAUNCHES}):"
+              f" {got:.6f} vs {golden[key]:.6f} (rel {rel:.2e})")
+        if name != "fused_wave" or not fw.LAUNCHES:
+            raise AssertionError(f"golden {key} did not go through K4")
+        if rel > GOLDEN_REL_TOL:
+            raise AssertionError(f"golden {key} via {name} drifted")
+
+
+def phase_interior_main(dev, smi):
+    """The slice's main path: the PBRT interior at 1024^2, depth 5, msaa 2,
+    PCG seed 0 (benchmarks.json interior_instanced_mis_1024), through route
+    auto (K4, with K1 + K5 tracing and the glass egg's instance group) and
+    route general (K1 + K5). Returns the kernel launches of the auto run
+    and every K1 / K4 / K5 launch of its sample 0 for phase 13."""
+    from pbrs_tpu_torch.accel import dispatch
+    from pbrs_tpu_torch.accel import fused_wave as fw
+    from pbrs_tpu_torch.accel import trace_kernel as tk
+    from pbrs_tpu_torch.accel import treelet as tl
+
+    scene = interior(SIZE, SIZE).to(dev)
+    tracer = tk.Tracer(dispatch.trace_geometry(scene)[0])
+    print(f"phase 15 interior tracer: flat bank {tracer.flat_rows} rows "
+          f"(counts {tracer.counts}), BVH families "
+          f"{[(f.n_prims, f.n_nodes, f.depth) for f in tracer.families]} "
+          f"(prims, nodes, depth)")
+    if not tracer.families:
+        raise AssertionError("the interior's triangles did not go to K5")
+    seen = main_path_launches(dev, scene, 5)
+    pix = torch.arange(SIZE * SIZE, dtype=torch.int32, device=dev)
+    results, launches = {}, {}
+    for route in ("auto", "general"):
+        tk.LAUNCHES = tl.LAUNCHES = fw.LAUNCHES = 0
+        results[route] = run_main_path(scene, route, pix, 5)
+        launches[route] = {"trace_flat": tk.LAUNCHES,
+                           "trace_bvh": tl.LAUNCHES,
+                           "fused_wave": fw.LAUNCHES}
+    for route, (name, mrays, wall, checksum) in results.items():
+        print(f"phase 15 main path {route} -> {name}: interior {SIZE}^2 depth "
+              f"5 msaa {MSAA}: median {mrays:.3f} Mrays/s, {wall * 1e3:.2f} "
+              f"ms/sample, checksum {checksum:.6e} [{smi}]")
+        print(f"phase 15 launches of route {route}: K1 trace_flat "
+              f"{launches[route]['trace_flat']}, K4 fused_wave "
+              f"{launches[route]['fused_wave']}, K5 trace_bvh "
+              f"{launches[route]['trace_bvh']}")
+    if results["auto"][0] != "fused_wave":
+        raise AssertionError("the interior main path did not take K4")
+    if not all(launches["auto"].values()):
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches['auto']}")
+    sums = [r[3] for r in results.values()]
+    if max(sums) - min(sums) > GOLDEN_REL_TOL * abs(sums[0]):
+        raise AssertionError(f"routes disagree on the checksum: {sums}")
+    return launches["auto"], seen
+
+
+def phase_interior_1080(dev, smi):
+    """One timed sample index of benchmarks.json
+    interior_pbrt_1920x1080_1024spp: 1920x1080, depth 8, msaa 32 (1024
+    spp), route auto, the frame in two chunks of at most 2^20 pixels in
+    Morton order (render.render_image's chunking), after one warm-up
+    sample; the wall time to 1024 spp is 1024 x the sample's."""
+    from pbrs_tpu_torch import render
+    from pbrs_tpu_torch.core import sampler as smp
+    from pbrs_tpu_torch.integrators import wavefront
+
+    w, h, depth, spp = 1920, 1080, 8, 1024
+    scene = interior(w, h).to(dev)
+    name, step = render.make_integrator(scene, smp.PCGSampler(0), depth,
+                                        int(spp ** 0.5), "auto")
+    order = wavefront.morton_pixel_order(w, h)
+    chunks = [torch.from_numpy(order[c:c + (1 << 20)]).to(dev)
+              for c in range(0, w * h, 1 << 20)]
+    for pix in chunks:
+        step(pix, 0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rays, total = 0, 0.0
+    for pix in chunks:
+        rad, cnt = step(pix, 1)
+        total += float(rad.sum())
+        rays += int(cnt)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    print(f"phase 16 interior {w}x{h} depth {depth} via {name}: "
+          f"{len(chunks)} chunks, one sample index {dt * 1e3:.2f} ms, "
+          f"{rays / dt / 1e6:.3f} Mrays/s, wall to {spp} spp "
+          f"{dt * spp:.1f} s, sample checksum {total:.6e} [{smi}]")
+    if name != "fused_wave" or not np.isfinite(total) or total <= 0:
+        raise AssertionError("the 1920x1080 interior sample is not a finite, "
+                             "lit K4 render")
+
+
+def phase_wave_vs_general(dev):
+    """The wave path (route auto's integrator) against the general path
+    (route general) per lane, sample 0, at full width: the interior 1024^2
+    depth 5, everything 800^2 depth 5, mesh_ball(levels=5) 800x600 depth
+    6. A lane whose path reaches a Perlin-marble surface is counted apart:
+    at everything's scale (coordinates to ~1000, the marble's top octave at
+    640 lattice cells a unit) one float32 ulp of hit position moves the
+    marble by ~0.3%, so the two paths' rounding differences there exceed
+    the per-lane tolerance; pbrs_tpu's own wave and general paths split
+    the same way (ROADMAP Queue 3). Limits: at most 0.01% of the other
+    lanes outside atol K4_ATOL, rtol K4_RTOL; at most MARBLE_SHARE of the
+    Perlin lanes outside atol K4_ATOL, rtol MARBLE_RTOL; the checksums
+    within GOLDEN_REL_TOL. Each lane outside tolerance is classified by
+    lane_diff: the bounce where the two paths part, and how."""
+    from pbrs_tpu_torch import lane_diff, render
+    from pbrs_tpu_torch.accel import fused_wave as fw
+    from pbrs_tpu_torch.core import sampler as smp
+
+    for label, scene, depth in (("interior", interior(SIZE, SIZE), 5),
+                                ("everything", mesh_scene("everything"),
+                                 EVERY_DEPTH),
+                                ("mesh_ball", mesh_scene("mesh_ball"),
+                                 MESH_DEPTH)):
+        scene = scene.to(dev)
+        n = scene.camera.width * scene.camera.height
+        pix = torch.arange(n, dtype=torch.int32, device=dev)
+        name, _ = render.make_integrator(scene, smp.PCGSampler(0), depth,
+                                         MSAA, "auto")
+        if name != "fused_wave":
+            raise AssertionError(f"{label}: route auto did not take K4")
+        wave = fw.FusedWaveIntegrator(scene)
+        perlin = lane_diff.perlin_materials(scene)
+        touched = torch.zeros(n, dtype=torch.bool, device=dev)
+        trace = wave.intersect_fn
+
+        def traced(rays):
+            hit = trace(rays)
+            touched.logical_or_(hit.hit & (rays.t_max > 0.0)
+                                & perlin[hit.mat_id.clamp_min(0).long()])
+            return hit
+
+        wave.intersect_fn = traced
+        rad_w, cnt_w = wave.render_samples(smp.PCGSampler(0), pix, 0,
+                                           max_depth=depth, msaa=MSAA)
+        _, general = render.make_integrator(scene, smp.PCGSampler(0), depth,
+                                            MSAA, "general")
+        rad_g, cnt_g = general(pix, 0)
+
+        def outside(rtol):
+            return ~torch.isclose(rad_w, rad_g, atol=K4_ATOL,
+                                  rtol=rtol).all(dim=1)
+
+        n_out = int(outside(K4_RTOL).sum())
+        n_marble = int((outside(K4_RTOL) & touched).sum())
+        marble = int(touched.sum())
+        rest = n - marble
+        loose = {r: int((outside(r) & touched).sum())
+                 for r in (1e-3, MARBLE_RTOL, 1e-1)}
+        s_w, s_g = float(rad_w.sum()), float(rad_g.sum())
+        print(f"phase 17 wave vs general, {label} ({n} lanes, depth {depth},"
+              f" sample 0): lanes outside atol {K4_ATOL} rtol {K4_RTOL}: "
+              f"{n_out}, {n_marble} of them among the {marble} that reach a "
+              f"Perlin surface, {n_out - n_marble} of the other {rest}; "
+              f"Perlin lanes outside atol {K4_ATOL} and rtol "
+              + ", ".join(f"{r:g}: {c}" for r, c in loose.items())
+              + f"; max |d| {float((rad_w - rad_g).abs().max()):.3g}; "
+              f"checksum {s_w:.6e} vs {s_g:.6e}; rays {int(cnt_w)} vs "
+              f"{int(cnt_g)}")
+        lanes = lane_diff.classify(scene, pix[outside(K4_RTOL)], depth, MSAA)
+        for how in sorted({ln["how"] for ln in lanes}):
+            print(f"phase 17 {label}, where the paths part: {how}: "
+                  + lane_diff.summary([ln for ln in lanes
+                                       if ln["how"] == how]))
+        if (n_out - n_marble > 1e-4 * rest
+                or loose[MARBLE_RTOL] > MARBLE_SHARE * marble
+                or abs(s_w - s_g) > GOLDEN_REL_TOL * abs(s_g)
+                or not np.isfinite(s_w)):
+            raise AssertionError(f"{label}: the wave path disagrees with the "
+                                 "general path")
 
 
 def kernel_entry(name, source, replaces, launches, report):
@@ -1054,6 +1507,13 @@ def main():
     k5 = phase_bvh(dev, rng, k1)
     phase_bvh_golden(dev)
     k5_launches = phase_mesh_main(dev, smi)
+    k4_launches, seen = phase_interior_main(dev, smi)
+    k4 = phase_wave(dev, seen)
+    phase_interior_traces(seen, k1, k5)
+    del seen
+    phase_wave_golden(dev)
+    phase_interior_1080(dev, smi)
+    phase_wave_vs_general(dev)
     kernels = [
         kernel_entry("trace_flat", "trace_flat.cu",
                      "pbrs_tpu/accel/trace_pallas.py:127",
@@ -1067,6 +1527,9 @@ def main():
         kernel_entry("trace_bvh", "trace_bvh.cu",
                      "pbrs_tpu/accel/treelet.py:310 and :479",
                      k5_launches["trace_bvh"], k5),
+        kernel_entry("fused_wave", "fused_wave.cu",
+                     "pbrs_tpu/accel/fused_wave.py:158",
+                     k4_launches["fused_wave"], k4),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -145,6 +145,29 @@ def scene_supports_single_lobe(scene) -> bool:
     return True
 
 
+def light_banks(scene):
+    """(area-light bank [max(A,1), 14], its shapes, delta-light bank
+    [max(D,1), 8]) as NumPy float32: the host packing K3 and K4 share."""
+    al = scene.area_lights
+    a = al.count
+    if a:
+        lights = np.concatenate([
+            _np(al.shape_kind)[:a, None].astype(np.float32),
+            _np(al.p0)[:a], _np(al.p1)[:a], _np(al.p2)[:a],
+            _np(al.scalar)[:a, None], _np(al.emit)[:a]], axis=1)
+        light_shapes = tuple(sorted(set(_np(al.shape_kind)[:a].tolist())))
+    else:
+        lights = np.zeros((1, LIGHT_COLS), np.float32)
+        light_shapes = ()
+    dl = scene.delta_lights
+    delta = np.zeros((max(dl.count, 1), DELTA_COLS), np.float32)
+    if dl.count:
+        delta[:, 0] = _np(dl.kind)[:dl.count]
+        delta[:, 1:4] = _np(dl.position)[:dl.count]
+        delta[:, 4:7] = _np(dl.color)[:dl.count]
+    return lights, light_shapes, delta
+
+
 def _mask(kinds) -> int:
     return sum(1 << int(k) for k in set(kinds))
 
@@ -222,25 +245,8 @@ class SingleLobeTables:
         else:
             texs = np.zeros((1, TEX_COLS), np.float32)
 
-        al = scene.area_lights
-        a = al.count
-        if a:
-            lights = np.concatenate([
-                _np(al.shape_kind)[:a, None].astype(np.float32),
-                _np(al.p0)[:a], _np(al.p1)[:a], _np(al.p2)[:a],
-                _np(al.scalar)[:a, None], _np(al.emit)[:a]], axis=1)
-            light_shapes = tuple(sorted(set(_np(al.shape_kind)[:a].tolist())))
-        else:
-            lights = np.zeros((1, LIGHT_COLS), np.float32)
-            light_shapes = ()
-
+        lights, light_shapes, delta = light_banks(scene)
         dl = scene.delta_lights
-        delta = np.zeros((max(dl.count, 1), DELTA_COLS), np.float32)
-        if dl.count:
-            delta[:, 0] = _np(dl.kind)[:dl.count]
-            delta[:, 1:4] = _np(dl.position)[:dl.count]
-            delta[:, 4:7] = _np(dl.color)[:dl.count]
-
         env = scene.env
         env_vec = np.concatenate([_np(env.color_a).reshape(3),
                                   _np(env.color_b).reshape(3),
@@ -248,7 +254,8 @@ class SingleLobeTables:
         return SingleLobeTables(
             bank=bank.contiguous(), counts=counts, mats=f32(mats),
             texs=f32(texs), lights=f32(lights), delta=f32(delta),
-            env=f32(env_vec), n_area=a, n_delta=dl.count,
+            env=f32(env_vec), n_area=scene.area_lights.count,
+            n_delta=dl.count,
             n_texs=int(texs.shape[0]) if mt.textured_slots else 0,
             env_kind=env.kind, two_slots=two_slots,
             present_kinds=tuple(sorted(set(used) - {lb.NONE})),
@@ -341,9 +348,15 @@ def _lambda_iso(distrib, alpha, wz):
     return torch.where(distrib == mfm.BECKMANN, lam_b, lam_t)
 
 
+def _pow5(x):
+    return (x * x) * (x * x) * x
+
+
 def _make_eval(lob, wol, has):
-    """lobes.eval_lobe + lobes.pdf_lobe of one slot for LAMBERT and
-    isotropic MICROFACET: eval_pdf(wil) -> (f_r, f_g, f_b, pdf)."""
+    """lobes.eval_lobe + lobes.pdf_lobe of one slot: eval_pdf(wil) ->
+    (f_r, f_g, f_b, pdf). LAMBERT and isotropic MICROFACET for K3; the
+    shade kernel K4 (accel/fused_wave.py) also reaches OREN_NAYAR (A, B in
+    alpha, alpha2) and FRESNEL_BLEND (Rs in spc_*)."""
     wolx, woly, wolz = wol
     kind = lob["kind"]
 
@@ -352,12 +365,32 @@ def _make_eval(lob, wol, has):
         f = [zero, zero, zero]
         pdf = zero
         same = wolz * wilz >= 0.0
+        cos_pdf = torch.abs(wilz) * INV_PI
         alb = (lob["alb_r"], lob["alb_g"], lob["alb_b"])
         if has(lb.LAMBERT):
             sel = (kind == lb.LAMBERT) & same
             f = [torch.where(sel, a * INV_PI, fc) for a, fc in zip(alb, f)]
-            pdf = torch.where(sel, torch.abs(wilz) * INV_PI, pdf)
-        if has(lb.MICROFACET):
+            pdf = torch.where(sel, cos_pdf, pdf)
+        if has(lb.OREN_NAYAR):
+            sin_i = torch.sqrt(torch.clamp_min(1.0 - wilz * wilz, 0.0))
+            sin_o = torch.sqrt(torch.clamp_min(1.0 - wolz * wolz, 0.0))
+            hyp_i = torch.clamp_min(torch.sqrt(wilx * wilx + wily * wily),
+                                    1e-20)
+            hyp_o = torch.clamp_min(torch.sqrt(wolx * wolx + woly * woly),
+                                    1e-20)
+            cos_dphi = (wilx * wolx + wily * woly) / (hyp_i * hyp_o)
+            d_cos = torch.clamp_min(cos_dphi, 0.0)
+            aci, aco = torch.abs(wilz), torch.abs(wolz)
+            steeper = aci > aco
+            sin_a = torch.where(steeper, sin_o, sin_i)
+            tan_b = torch.where(steeper, sin_i / torch.clamp_min(aci, 1e-20),
+                                sin_o / torch.clamp_min(aco, 1e-20))
+            factor = lob["alpha"] + lob["alpha2"] * d_cos * sin_a * tan_b
+            sel = (kind == lb.OREN_NAYAR) & same
+            f = [torch.where(sel, a * INV_PI * factor, fc)
+                 for a, fc in zip(alb, f)]
+            pdf = torch.where(sel, cos_pdf, pdf)
+        if has(lb.MICROFACET, lb.FRESNEL_BLEND):
             mx, my, mz = wolx + wilx, woly + wily, wolz + wilz
             m2 = mx * mx + my * my + mz * mz
             okm = m2 > 1e-16
@@ -365,6 +398,11 @@ def _make_eval(lob, wol, has):
             whx, why, whz = mx * minv, my * minv, mz * minv
             alpha, distrib = lob["alpha"], lob["distrib"]
             dval = _d_ndf(distrib, alpha, whz)
+            # pdf: D(wh) |cos theta_h| / (4 wo.wh) with the raw wh.
+            dot_oh = wolx * whx + woly * why + wolz * whz
+            p_mf = dval * torch.abs(whz) * _weak_recip(4.0 * dot_oh)
+            p_mf = torch.where(same & okm, torch.clamp_min(p_mf, 0.0), 0.0)
+        if has(lb.MICROFACET):
             g = 1.0 / (1.0 + _lambda_iso(distrib, alpha, wolz)
                        + _lambda_iso(distrib, alpha, wilz))
             # Fresnel at wi.wh with wh face-forwarded to +z.
@@ -376,47 +414,83 @@ def _make_eval(lob, wol, has):
             sel = kind == lb.MICROFACET
             f = [torch.where(sel, a * scale * c, fc)
                  for a, c, fc in zip(alb, frc, f)]
-            # pdf: D(wh) |cos theta_h| / (4 wo.wh) with the raw wh.
-            dot_oh = wolx * whx + woly * why + wolz * whz
-            p_mf = dval * torch.abs(whz) * _weak_recip(4.0 * dot_oh)
-            p_mf = torch.where(same & okm, p_mf, 0.0)
-            pdf = torch.where(sel, torch.clamp_min(p_mf, 0.0), pdf)
+            pdf = torch.where(sel, p_mf, pdf)
+        if has(lb.FRESNEL_BLEND):
+            # Ashikhmin-Shirley.
+            aci, aco = torch.abs(wilz), torch.abs(wolz)
+            dterm = (28.0 / 23.0 * INV_PI) * (
+                1.0 - _pow5(1.0 - 0.5 * aci)) * (1.0 - _pow5(1.0 - 0.5 * aco))
+            iw = wilx * whx + wily * why + wilz * whz
+            sch = _pow5(1.0 - iw)
+            dfac = dval * _weak_recip(4.0 * torch.abs(iw)
+                                      * torch.maximum(aci, aco))
+            sel = (kind == lb.FRESNEL_BLEND) & okm & same
+            spc = (lob["spc_r"], lob["spc_g"], lob["spc_b"])
+            f = [torch.where(sel, dterm * a * (1.0 - sp)
+                             + dfac * (sp + sch * (1.0 - sp)), fc)
+                 for a, sp, fc in zip(alb, spc, f)]
+            pdf = torch.where(kind == lb.FRESNEL_BLEND,
+                              torch.where(same & okm, 0.5 * (cos_pdf + p_mf),
+                                          0.0), pdf)
         return f[0], f[1], f[2], pdf
 
     return eval_pdf
 
 
 def _sample_lobe(lob, wol, su0, su1, eval_pdf, has):
-    """lobes.sample_lobe for the single-lobe kinds, on the remapped pair
+    """lobes.sample_lobe for the kinds of K3 and K4, on the remapped pair
     (su0, su1) the mixture hands the chosen lobe. Returns (f_r, f_g, f_b,
     wix, wiy, wiz, pdf-or-pmf, is_delta); f is without the cosine."""
     wolx, woly, wolz = wol
     kind = lob["kind"]
-    # Cosine hemisphere (Lambert and the empty slot).
+    # Cosine hemisphere (Lambert, Oren-Nayar and the empty slot).
     ddx, ddy = fk._concentric_disk(su0 * 2.0 - 1.0, su1 * 2.0 - 1.0)
     ddz = torch.sqrt(torch.clamp_min(1.0 - ddx * ddx - ddy * ddy, 0.0))
     flip = torch.where(wolz < 0.0, -1.0, 1.0)
     wix, wiy, wiz = ddx * flip, ddy * flip, ddz * flip
 
-    if has(lb.MICROFACET):
-        phi = 2.0 * PI_F * su1
+    def sample_wh(u, v):
+        """Isotropic microfacet.sample_wh, face-forwarded to wo."""
+        phi = 2.0 * PI_F * v
         a2 = torch.clamp_min(lob["alpha"] * lob["alpha"], 1e-30)
-        log_s = torch.log(torch.clamp_min(1.0 - su0, 1e-30))
+        log_s = torch.log(torch.clamp_min(1.0 - u, 1e-30))
         tan2_b = -log_s * a2
-        tan2_t = su0 / torch.clamp_min(1.0 - su0, 1e-30) * a2
+        tan2_t = u / torch.clamp_min(1.0 - u, 1e-30) * a2
         tan2 = torch.where(lob["distrib"] == mfm.BECKMANN, tan2_b, tan2_t)
         cos_t = 1.0 / torch.sqrt(1.0 + tan2)
         sin_t = cos_t * torch.sqrt(torch.clamp_min(tan2, 0.0))
         whx = sin_t * torch.cos(phi)
         why = sin_t * torch.sin(phi)
         whz = cos_t
-        sgn = torch.where(whx * wolx + why * woly + whz * wolz < 0.0, -1.0, 1.0)
-        whx, why, whz = whx * sgn, why * sgn, whz * sgn
+        sgn = torch.where(whx * wolx + why * woly + whz * wolz < 0.0, -1.0,
+                          1.0)
+        return whx * sgn, why * sgn, whz * sgn
+
+    if has(lb.MICROFACET):
+        whx, why, whz = sample_wh(su0, su1)
         doh = wolx * whx + woly * why + wolz * whz
         sel = kind == lb.MICROFACET
         wix = torch.where(sel, 2.0 * doh * whx - wolx, wix)
         wiy = torch.where(sel, 2.0 * doh * why - woly, wiy)
         wiz = torch.where(sel, 2.0 * doh * whz - wolz, wiz)
+
+    if has(lb.FRESNEL_BLEND):
+        # Two strategies split on su0: cosine hemisphere below 0.5, a
+        # reflected microfacet normal above.
+        fb_diffuse = su0 < 0.5
+        u_lo = torch.clamp_max(su0 * 2.0, 1.0 - 1e-7)
+        u_hi = torch.remainder(su0 * 2.0, 1.0)
+        cdx, cdy = fk._concentric_disk(u_lo * 2.0 - 1.0, su1 * 2.0 - 1.0)
+        cdz = torch.sqrt(torch.clamp_min(1.0 - cdx * cdx - cdy * cdy, 0.0))
+        fwhx, fwhy, fwhz = sample_wh(u_hi, su1)
+        fdoh = wolx * fwhx + woly * fwhy + wolz * fwhz
+        sel = kind == lb.FRESNEL_BLEND
+        wix = torch.where(sel, torch.where(fb_diffuse, cdx * flip,
+                                           2.0 * fdoh * fwhx - wolx), wix)
+        wiy = torch.where(sel, torch.where(fb_diffuse, cdy * flip,
+                                           2.0 * fdoh * fwhy - woly), wiy)
+        wiz = torch.where(sel, torch.where(fb_diffuse, cdz * flip,
+                                           2.0 * fdoh * fwhz - wolz), wiz)
 
     if has(lb.SPEC_MIRROR):
         sel = kind == lb.SPEC_MIRROR
@@ -454,9 +528,13 @@ def _sample_lobe(lob, wol, su0, su1, eval_pdf, has):
         wiz = torch.where(sel, torch.where(refl, wolz, tz_), wiz)
 
     f_r, f_g, f_b, pdf = eval_pdf(wix, wiy, wiz)
-    if has(lb.MICROFACET):
-        # Below-horizon microfacet samples are rejected.
+    if has(lb.MICROFACET, lb.FRESNEL_BLEND):
+        # Below-horizon microfacet / FresnelBlend-specular samples are
+        # rejected.
         reject = (kind == lb.MICROFACET) & (wolz * wiz < 0.0)
+        if has(lb.FRESNEL_BLEND):
+            reject = reject | ((kind == lb.FRESNEL_BLEND) & ~fb_diffuse
+                               & (wolz * wiz < 0.0))
         f_r, f_g, f_b, pdf = (torch.where(reject, 0.0, x)
                               for x in (f_r, f_g, f_b, pdf))
 
@@ -664,6 +742,46 @@ def _hit_detail(tab, hit, pid, px, py, pz, rdx, rdy, rdz):
         px, py, pz = put(sel_disk, (dcx + cpx, dcy + cpy, dcz + cpz),
                          (px, py, pz))
     return (px, py, pz), (nx, ny, nz), (tx, ty, tz), mat_id
+
+
+def _shading_frame(n, t, d):
+    """vecmath.orthonormal_frame(normal n, dpdu t) on planes: (to_local,
+    to_world, wo in the local frame) for ray direction d."""
+    nx, ny, nz = n
+    tx, ty, tz = t
+    bx = ny * tz - nz * ty
+    by = nz * tx - nx * tz
+    bz = nx * ty - ny * tx
+    good = bx * bx + by * by + bz * bz > 1e-12
+    sD = torch.where(nz >= 0.0, 1.0, -1.0)
+    aD = -1.0 / (sD + nz)
+    bD = nx * ny * aD
+    atx = 1.0 + sD * nx * nx * aD
+    aty = sD * bD
+    atz = -sD * nx
+    bx = torch.where(good, bx, ny * atz - nz * aty)
+    by = torch.where(good, by, nz * atx - nx * atz)
+    bz = torch.where(good, bz, nx * aty - ny * atx)
+    binv = torch.rsqrt(torch.clamp_min(bx * bx + by * by + bz * bz, 1e-30))
+    bx, by, bz = bx * binv, by * binv, bz * binv
+    fx_ = by * nz - bz * ny
+    fy_ = bz * nx - bx * nz
+    fz_ = bx * ny - by * nx
+
+    def to_local(wx, wy, wz):
+        lx = wx * fx_ + wy * fy_ + wz * fz_
+        ly = wx * bx + wy * by + wz * bz
+        lz = wx * nx + wy * ny + wz * nz
+        inv = torch.rsqrt(torch.clamp_min(lx * lx + ly * ly + lz * lz, 1e-30))
+        return lx * inv, ly * inv, lz * inv
+
+    def to_world(lx, ly, lz):
+        return (lx * fx_ + ly * bx + lz * nx, lx * fy_ + ly * by + lz * ny,
+                lx * fz_ + ly * bz + lz * nz)
+
+    dx, dy, dz = d
+    winv = torch.rsqrt(torch.clamp_min(dx * dx + dy * dy + dz * dz, 1e-30))
+    return to_local, to_world, to_local(-dx * winv, -dy * winv, -dz * winv)
 
 
 class _AreaLight:
@@ -933,41 +1051,7 @@ def bounce2_reference(tab: SingleLobeTables, fin, alive_in, spec_in, pix,
         dx, dy, dz)
     px, py, pz = p
     nx, ny, nz = n
-    tx, ty, tz = tg
-
-    # ---- shading frame: vecmath.orthonormal_frame(normal, dpdu) ----
-    bx = ny * tz - nz * ty
-    by = nz * tx - nx * tz
-    bz = nx * ty - ny * tx
-    good = bx * bx + by * by + bz * bz > 1e-12
-    sD = torch.where(nz >= 0.0, 1.0, -1.0)
-    aD = -1.0 / (sD + nz)
-    bD = nx * ny * aD
-    atx = 1.0 + sD * nx * nx * aD
-    aty = sD * bD
-    atz = -sD * nx
-    bx = torch.where(good, bx, ny * atz - nz * aty)
-    by = torch.where(good, by, nz * atx - nx * atz)
-    bz = torch.where(good, bz, nx * aty - ny * atx)
-    binv = torch.rsqrt(torch.clamp_min(bx * bx + by * by + bz * bz, 1e-30))
-    bx, by, bz = bx * binv, by * binv, bz * binv
-    fx_ = by * nz - bz * ny
-    fy_ = bz * nx - bx * nz
-    fz_ = bx * ny - by * nx
-
-    def to_local(wx, wy, wz):
-        lx = wx * fx_ + wy * fy_ + wz * fz_
-        ly = wx * bx + wy * by + wz * bz
-        lz = wx * nx + wy * ny + wz * nz
-        inv = torch.rsqrt(torch.clamp_min(lx * lx + ly * ly + lz * lz, 1e-30))
-        return lx * inv, ly * inv, lz * inv
-
-    def to_world(lx, ly, lz):
-        return (lx * fx_ + ly * bx + lz * nx, lx * fy_ + ly * by + lz * ny,
-                lx * fz_ + ly * bz + lz * nz)
-
-    winv = torch.rsqrt(torch.clamp_min(dx * dx + dy * dy + dz * dz, 1e-30))
-    wol = to_local(-dx * winv, -dy * winv, -dz * winv)
+    to_local, to_world, wol = _shading_frame(n, tg, (dx, dy, dz))
 
     # ---- material row (one indexed load) + procedural textures ----
     n_mats = tab.mats.shape[0]

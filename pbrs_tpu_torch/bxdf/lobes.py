@@ -1,7 +1,7 @@
 """BSDF lobe models with branchless kind dispatch. Mirrors
-pbrs_tpu/bxdf/lobes.py for the LAMBERT, MICROFACET, SPEC_MIRROR,
-SPEC_DIELECTRIC and SPEC_TRANSMIT kinds; OREN_NAYAR, FRESNEL_BLEND and
-FOURIER raise NotImplementedError until their slice is ported.
+pbrs_tpu/bxdf/lobes.py for the LAMBERT, OREN_NAYAR, MICROFACET,
+SPEC_MIRROR, SPEC_DIELECTRIC, SPEC_TRANSMIT and FRESNEL_BLEND kinds;
+FOURIER raises NotImplementedError until its slice is ported.
 
 A lobe is a row of SoA parameter tensors tagged with an integer kind;
 eval/pdf/sample compute every model the scene can produce and mask-select.
@@ -30,8 +30,8 @@ FRESNEL_BLEND = 7
 FOURIER = 8
 
 INV_PI = 1.0 / math.pi
-PORTED_KINDS = (LAMBERT, MICROFACET, SPEC_MIRROR, SPEC_DIELECTRIC,
-                SPEC_TRANSMIT)
+PORTED_KINDS = (LAMBERT, OREN_NAYAR, MICROFACET, SPEC_MIRROR,
+                SPEC_DIELECTRIC, SPEC_TRANSMIT, FRESNEL_BLEND)
 FIELDS = ("kind", "albedo", "specular", "alpha", "distrib", "fr_kind", "eta",
           "eta_t", "k")
 
@@ -44,7 +44,7 @@ class Lobes:
     kind: torch.Tensor
     albedo: torch.Tensor
     specular: torch.Tensor  # FresnelBlend Rs
-    alpha: torch.Tensor  # [..., L, 2] microfacet alphas
+    alpha: torch.Tensor  # [..., L, 2] microfacet alphas / Oren-Nayar (A, B)
     distrib: torch.Tensor
     fr_kind: torch.Tensor
     eta: torch.Tensor  # [..., L, 2] dielectric (front, back)
@@ -134,6 +134,26 @@ def _fresnel_of(lb: Lobes, cos_i):
                          lb.eta_t, lb.k)
 
 
+def _oren_nayar_factor(lb, wo, wi):
+    a, b = lb.alpha[..., 0], lb.alpha[..., 1]
+    sin_i = torch.sqrt(mf.sin2_theta(wi))
+    sin_o = torch.sqrt(mf.sin2_theta(wo))
+    hyp_i = torch.clamp_min(torch.sqrt(wi[..., 0] ** 2 + wi[..., 1] ** 2),
+                            1e-20)
+    hyp_o = torch.clamp_min(torch.sqrt(wo[..., 0] ** 2 + wo[..., 1] ** 2),
+                            1e-20)
+    cos_dphi = (wi[..., 0] * wo[..., 0]
+                + wi[..., 1] * wo[..., 1]) / (hyp_i * hyp_o)
+    d_cos = torch.clamp_min(cos_dphi, 0.0)
+    aci = torch.abs(wi[..., 2])
+    aco = torch.abs(wo[..., 2])
+    i_steeper = aci > aco
+    sin_alpha = torch.where(i_steeper, sin_o, sin_i)
+    tan_beta = torch.where(i_steeper, sin_i / torch.clamp_min(aci, 1e-20),
+                           sin_o / torch.clamp_min(aco, 1e-20))
+    return a + b * d_cos * sin_alpha * tan_beta
+
+
 def _microfacet_eval(lb, wo, wi):
     aco = torch.abs(mf.cos_theta(wo))
     aci = torch.abs(mf.cos_theta(wi))
@@ -153,6 +173,26 @@ def _microfacet_eval(lb, wo, wi):
     return torch.where(zero_mask[..., None], 0.0, val)
 
 
+def _fresnel_blend_eval(lb, wo, wi):
+    """Ashikhmin-Shirley FresnelBlend."""
+    mid = wo + wi
+    ok = vm.dot(mid, mid) > 1e-16
+    wh = vm.normalize(mid)
+    aci = torch.abs(mf.cos_theta(wi))
+    aco = torch.abs(mf.cos_theta(wo))
+    rd, rs = lb.albedo, lb.specular
+    diffuse = ((28.0 / 23.0 * INV_PI) * rd * (1.0 - rs)
+               * ((1.0 - (1.0 - 0.5 * aci) ** 5)
+                  * (1.0 - (1.0 - 0.5 * aco) ** 5))[..., None])
+    iw = vm.dot(wi, wh)
+    schlick_c = rs + ((1.0 - iw) ** 5)[..., None] * (1.0 - rs)
+    ax, ay = lb.alpha[..., 0], lb.alpha[..., 1]
+    denom = 4.0 * torch.abs(iw) * torch.maximum(aci, aco)
+    spec = (mf.d(lb.distrib, ax, ay, wh)
+            * vm.weak_recip(denom))[..., None] * schlick_c
+    return torch.where(ok[..., None], diffuse + spec, 0.0)
+
+
 def eval_lobe(lb: Lobes, wo, wi):
     """f(wo, wi) for one lobe slot; delta kinds evaluate to 0 and the
     reflection-only kinds are zero across the horizon."""
@@ -163,9 +203,15 @@ def eval_lobe(lb: Lobes, wo, wi):
     if lb.has(LAMBERT):
         out = torch.where((k[..., None] == LAMBERT) & same,
                           lb.albedo * INV_PI, out)
+    if lb.has(OREN_NAYAR):
+        on = lb.albedo * INV_PI * _oren_nayar_factor(lb, wo, wi)[..., None]
+        out = torch.where((k[..., None] == OREN_NAYAR) & same, on, out)
     if lb.has(MICROFACET):
         out = torch.where((k[..., None] == MICROFACET) & same,
                           _microfacet_eval(lb, wo, wi), out)
+    if lb.has(FRESNEL_BLEND):
+        out = torch.where((k[..., None] == FRESNEL_BLEND) & same,
+                          _fresnel_blend_eval(lb, wo, wi), out)
     return out
 
 
@@ -175,18 +221,22 @@ def pdf_lobe(lb: Lobes, wo, wi):
     k = lb.kind
     same = same_hemisphere(wo, wi)
     out = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
-    if lb.has(LAMBERT):
+    if lb.has(LAMBERT, OREN_NAYAR, FRESNEL_BLEND):
         p_cos = torch.where(same, cos_hemisphere_pdf(wi), 0.0)
-        out = torch.where(k == LAMBERT, p_cos, out)
-    if lb.has(MICROFACET):
+        out = torch.where((k == LAMBERT) | (k == OREN_NAYAR), p_cos, out)
+    if lb.has(MICROFACET, FRESNEL_BLEND):
         mid = wo + wi
         ok = vm.dot(mid, mid) > 1e-16
         wh = vm.normalize(mid)
         ax, ay = lb.alpha[..., 0], lb.alpha[..., 1]
         p_mf = mf.pdf_wh(lb.distrib, ax, ay, wo, wh) * vm.weak_recip(
             4.0 * vm.dot(wo, wh))
-        out = torch.where(k == MICROFACET, torch.where(same & ok, p_mf, 0.0),
-                          out)
+        p_mf = torch.where(same & ok, p_mf, 0.0)
+        out = torch.where(k == MICROFACET, p_mf, out)
+        if lb.has(FRESNEL_BLEND):
+            p_fb = torch.where(same & ok,
+                               0.5 * (cos_hemisphere_pdf(wi) + p_mf), 0.0)
+            out = torch.where(k == FRESNEL_BLEND, p_fb, out)
     return torch.clamp_min(out, 0.0)
 
 
@@ -208,13 +258,14 @@ def sample_lobe(lb: Lobes, wo, u2):
     for delta kinds the pdf is the mass of the chosen branch."""
     check_ported(lb.present_kinds)
     k = lb.kind
-    v = u2[..., 1]
+    u, v = u2[..., 0], u2[..., 1]
     has = lb.has
     k3 = k[..., None]
 
     wi = cos_sample_hemisphere(u2)
     wi = wi * torch.where(mf.cos_theta(wo) < 0.0, -1.0, 1.0)[..., None]
     ax, ay = lb.alpha[..., 0], lb.alpha[..., 1]
+    fb_diffuse = u < 0.5
 
     if has(MICROFACET):
         wh = mf.sample_wh(lb.distrib, ax, ay, wo, u2)
@@ -225,6 +276,17 @@ def sample_lobe(lb: Lobes, wo, u2):
     if has(SPEC_TRANSMIT, SPEC_DIELECTRIC):
         wi_refr, tir = _refract_local(wo, lb.eta[..., 0], lb.eta[..., 1])
         wi = torch.where(k3 == SPEC_TRANSMIT, wi_refr, wi)
+    if has(FRESNEL_BLEND):
+        # Two strategies split on u: cosine hemisphere, or a reflected
+        # microfacet normal.
+        u_fb_lo = torch.clamp_max(u * 2.0, 1.0 - 1e-7)
+        u_fb_hi = torch.remainder(u * 2.0, 1.0)
+        wi_fb_cos = cos_sample_hemisphere(torch.stack([u_fb_lo, v], dim=-1))
+        wh_fb = mf.sample_wh(lb.distrib, ax, ay, wo,
+                             torch.stack([u_fb_hi, v], dim=-1))
+        wi_fb = torch.where(fb_diffuse[..., None], wi_fb_cos,
+                            vm.reflect(wh_fb, wo))
+        wi = torch.where(k3 == FRESNEL_BLEND, wi_fb, wi)
     if has(SPEC_DIELECTRIC):
         # Reflect with probability R(wo), else refract.
         r_coeff = fr.dielectric_refl(mf.cos_theta(wo), lb.eta[..., 0],
@@ -235,9 +297,11 @@ def sample_lobe(lb: Lobes, wo, u2):
 
     f = eval_lobe(lb, wo, wi)
     p = pdf_lobe(lb, wo, wi)
-    if has(MICROFACET):
-        # Microfacet samples below the horizon are rejected.
-        reject = (k == MICROFACET) & ~same_hemisphere(wo, wi)
+    if has(MICROFACET, FRESNEL_BLEND):
+        # Microfacet / FresnelBlend-specular samples below the horizon are
+        # rejected.
+        reject = ((k == MICROFACET) | ((k == FRESNEL_BLEND) & ~fb_diffuse)
+                  ) & ~same_hemisphere(wo, wi)
         f = torch.where(reject[..., None], 0.0, f)
         p = torch.where(reject, 0.0, p)
 

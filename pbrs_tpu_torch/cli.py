@@ -3,11 +3,13 @@ far; any other flag or preset exits with "not yet ported".
 
     python -m pbrs_tpu_torch.cli --scene_name cornell_box --msaa 2 \\
         --depth 5 --resolution 256x256 --output cornell.exr
+    python -m pbrs_tpu_torch.cli --pbrt_file scenes/interior/interior.pbrt
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -20,6 +22,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="wavefront path tracer on PyTorch + CUDA")
     p.add_argument("--scene_name", default="cornell_box",
                    help="preset scene name")
+    p.add_argument("--pbrt_file", default=None,
+                   help="render a PBRT scene file instead of a preset")
     p.add_argument("--integrator", default="path",
                    help="path (the direct integrator is not ported yet)")
     p.add_argument("--msaa", type=int, default=2,
@@ -59,10 +63,17 @@ def main(argv=None) -> int:
     from .io import image as io_image
     from .scene import presets
 
-    if args.scene_name not in presets.PRESETS:
+    if args.pbrt_file:
+        from .scene.pbrt import loader
+
+        scene = loader.build_scene(args.pbrt_file)
+        name = os.path.splitext(os.path.basename(args.pbrt_file))[0]
+    elif args.scene_name not in presets.PRESETS:
         sys.exit(f"pbrs_tpu_torch: scene {args.scene_name!r}: not yet "
                  f"ported (have {sorted(presets.PRESETS)})")
-    scene = presets.PRESETS[args.scene_name]()
+    else:
+        scene = presets.PRESETS[args.scene_name]()
+        name = args.scene_name
     if args.resolution:
         w, h = (int(x) for x in args.resolution.lower().split("x"))
         scene = with_resolution(scene, w, h)
@@ -80,7 +91,7 @@ def main(argv=None) -> int:
     mrays = stats.traced_rays / max(stats.wall_time, 1e-9) / 1e6
     print(f"whole render time = {wall:.2f}s ({mrays:.1f} Mrays/s, "
           f"{stats.integrator} path on {device})")
-    out = args.output or f"{args.scene_name}-path-{spp}spp.exr"
+    out = args.output or f"{name}-path-{spp}spp.exr"
     if out.endswith(".png"):
         io_image.write_png(out, img)
     else:

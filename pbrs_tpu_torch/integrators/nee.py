@@ -1,7 +1,7 @@
 """Next-event estimation with multiple importance sampling. Mirrors
 pbrs_tpu/integrators/nee.py in its two-arm mode for delta lights, area
-lights and the none/const/gradient/dusk environment (environment
-importance sampling and the folded mode are not ported yet).
+lights and every environment kind, with the importance-sampled arm of an
+image environment (the folded mode is not ported yet).
 
 One light is chosen uniformly per ray among delta + area + env; two shadow
 batches per call: the light-sampled direction and the BSDF-sampled one
@@ -15,6 +15,7 @@ import torch
 from ..bxdf import bsdf as bsdf_mod
 from ..core import vecmath as vm
 from ..geometry import ray as ray_mod
+from ..lights import env_sampling as es
 from ..lights import lights as lt
 
 
@@ -45,9 +46,12 @@ def uniform_sample_one_light(scene, lobes, frame, hit_pos, hit_normal, wo,
     arm_env = chosen >= n_delta + n_area
     result = torch.zeros_like(hit_pos)
     a_idx = torch.clamp(chosen - n_delta, 0, max(n_area - 1, 0))
+    # An image environment with a distribution gets a light-sampled leg
+    # too; both legs MIS-combine with the power-2 heuristic.
+    env_is = bool(has_env) and scene.env.dist is not None
 
-    # ----------------- light-sampled arm (delta + area) -----------------
-    if n_delta + n_area > 0:
+    # ------------- light-sampled arm (delta + area + env-IS) -------------
+    if n_delta + n_area > 0 or env_is:
         z_axis = torch.tensor([0.0, 0.0, 1.0], device=hit_pos.device)
         li_l = torch.zeros_like(hit_pos)
         wi_l = z_axis.expand_as(hit_pos)
@@ -69,16 +73,33 @@ def uniform_sample_one_light(scene, lobes, frame, hit_pos, hit_normal, wo,
             wi_l = torch.where(a3, wi_a, wi_l)
             target_l = torch.where(a3, pt_a, target_l)
             pdf_l = torch.where(arm_area, pdf_a, pdf_l)
+        if env_is:
+            wi_e, li_e, pdf_e = es.sample_env(scene.env.dist, u_light)
+            e3 = arm_env[..., None]
+            li_l = torch.where(e3, li_e, li_l)
+            wi_l = torch.where(e3, wi_e, wi_l)
+            pdf_l = torch.where(arm_env, pdf_e, pdf_l)
 
         f_l = bsdf_mod.eval_bsdf(lobes, frame, wo, wi_l) * torch.abs(
             vm.dot(hit_normal, wi_l))[..., None]
         scatter_pdf = bsdf_mod.pdf_bsdf(lobes, frame, wo, wi_l)
         shadow = ray_mod.spawn_limited_to(hit_pos, hit_normal, target_l)
+        if env_is:
+            # Env-arm visibility is an unbounded ray along wi_e.
+            unb = ray_mod.spawn(hit_pos, hit_normal, wi_l)
+            e3 = arm_env[..., None]
+            shadow = ray_mod.RayBatch(
+                origin=torch.where(e3, unb.origin, shadow.origin),
+                dir=torch.where(e3, unb.dir, shadow.dir),
+                t_max=torch.where(arm_env, unb.t_max, shadow.t_max))
         occluded_l = occlude_fn(mask_dead(shadow))
         # MIS weight: 1 for delta lights, power 2 otherwise.
         weight = torch.where(arm_delta, 1.0,
                              _power2_heuristic(pdf_l, scatter_pdf))
-        valid = ((arm_delta | arm_area) & ~occluded_l & (pdf_l > 0.0)
+        arm_sampled = arm_delta | arm_area
+        if env_is:
+            arm_sampled = arm_sampled | arm_env
+        valid = (arm_sampled & ~occluded_l & (pdf_l > 0.0)
                  & ((li_l[..., 0] > 0.0) | (li_l[..., 1] > 0.0)
                     | (li_l[..., 2] > 0.0)))
         contrib = f_l * li_l * (weight * vm.weak_recip(pdf_l))[..., None]
@@ -120,8 +141,15 @@ def uniform_sample_one_light(scene, lobes, frame, hit_pos, hit_normal, wo,
 
     if has_env:
         valid_e = arm_env & ~is_delta_b & ~occluded_b & (pdf_b > 0.0)
-        li_env = lt.eval_env(scene.env, wi_b)
-        contrib_e = f_b * li_env * (1.0 * vm.weak_recip(pdf_b))[..., None]
+        if env_is:
+            # One texel lookup for the radiance and the MIS pdf.
+            li_env, p_e = es.eval_env_pdf(scene.env, wi_b)
+            weight_e = _power2_heuristic(pdf_b, p_e)
+        else:
+            li_env = lt.eval_env(scene.env, wi_b)
+            weight_e = 1.0
+        contrib_e = f_b * li_env * (weight_e
+                                    * vm.weak_recip(pdf_b))[..., None]
         result = result + torch.where(valid_e[..., None], contrib_e, 0.0)
 
     # 1 / light_pdf = n_lights.

@@ -1,13 +1,17 @@
-"""Image output: PNG (via PIL) and a self-contained OpenEXR writer/reader.
+"""Image I/O: PNG and a self-contained OpenEXR writer/reader.
 
 Copied from pbrs_tpu/io/image.py (host-side NumPy; ``to_u8`` from
 pbrs_tpu/radiometry.py). ``write_exr`` emits uncompressed single-part
-scanline OpenEXR 2.0 for float32 RGB, readable by ``read_exr``.
+scanline OpenEXR 2.0 for float32 RGB, readable by ``read_exr``. The PNG
+reader and writer use zlib and NumPy only (the JAX package reads and writes
+PNGs with PIL): ``read_png`` decodes 8-bit, non-interlaced grey, grey+alpha,
+RGB and RGBA images with filter types 0-4.
 """
 
 from __future__ import annotations
 
 import struct
+import zlib
 
 import numpy as np
 
@@ -94,11 +98,106 @@ def read_exr(path: str) -> np.ndarray:
     return img
 
 
-def write_png(path: str, image: np.ndarray, gamma: bool = True) -> None:
-    """sqrt-gamma + u8 PNG."""
-    from PIL import Image
+def _chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
+
+def write_png(path: str, image: np.ndarray, gamma: bool = True) -> None:
+    """sqrt-gamma + u8 RGB PNG (filter type 0 on every row)."""
     img = np.asarray(image, np.float32)
     if gamma:
         img = np.sqrt(np.maximum(img, 0.0))
-    Image.fromarray(to_u8(img), "RGB").save(path)
+    u8 = to_u8(img)
+    h, w, _ = u8.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), u8.reshape(h, 3 * w)],
+                         axis=1).tobytes()
+    with open(path, "wb") as f:
+        f.write(_PNG_MAGIC)
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(_chunk(b"IEND", b""))
+
+
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples a pixel
+
+
+def _paeth_row(line, prior, bpp):
+    """Undo the Paeth filter of one row (bytes, in place)."""
+    for i in range(len(line)):
+        a = line[i - bpp] if i >= bpp else 0
+        b = prior[i]
+        c = prior[i - bpp] if i >= bpp else 0
+        p = a + b - c
+        pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+        pred = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
+        line[i] = (line[i] + pred) & 0xFF
+
+
+def _average_row(line, prior, bpp):
+    """Undo the Average filter of one row (bytes, in place)."""
+    for i in range(len(line)):
+        a = line[i - bpp] if i >= bpp else 0
+        line[i] = (line[i] + ((a + prior[i]) >> 1)) & 0xFF
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode a PNG into a uint8 [H, W, C] array (C = 1, 2, 3 or 4)."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if raw[:8] != _PNG_MAGIC:
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(raw):
+        (length,) = struct.unpack_from(">I", raw, pos)
+        tag = raw[pos + 4:pos + 8]
+        data = raw[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data)
+        elif tag == b"IDAT":
+            idat.append(data)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, ctype, _comp, _filt, interlace = header
+    if depth != 8 or ctype not in _PNG_CHANNELS or interlace != 0:
+        raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, colour "
+                         f"type {ctype}, interlace {interlace}); read_png "
+                         "takes 8-bit non-interlaced grey/RGB(A)")
+    bpp = _PNG_CHANNELS[ctype]
+    stride = w * bpp
+    data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = data.reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        kind, line = int(rows[y, 0]), rows[y, 1:]
+        if kind == 0:
+            cur = line.copy()
+        elif kind == 1:  # Sub: a running sum along the row, per channel
+            cur = (np.cumsum(line.reshape(w, bpp).astype(np.int64), axis=0)
+                   & 0xFF).astype(np.uint8).reshape(stride)
+        elif kind == 2:  # Up
+            cur = line + prior
+        elif kind in (3, 4):
+            buf = bytearray(line.tobytes())
+            (_average_row if kind == 3 else _paeth_row)(buf, prior.tobytes(),
+                                                        bpp)
+            cur = np.frombuffer(bytes(buf), np.uint8)
+        else:
+            raise ValueError(f"{path}: bad filter type {kind} in row {y}")
+        out[y] = cur
+        prior = out[y]
+    return out.reshape(h, w, bpp)
+
+
+def read_png_rgb(path: str) -> np.ndarray:
+    """A PNG as float32 linear [H, W, 3] in [0, 1]: grey is replicated and
+    alpha dropped, as PIL's ``convert("RGB")`` does."""
+    px = read_png(path)
+    if px.shape[2] in (1, 2):
+        px = np.repeat(px[:, :, :1], 3, axis=2)
+    return px[:, :, :3].astype(np.float32) / 255.0

@@ -26,8 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("trace_flat.cu", "fused_bounce.cu", "fused_single_lobe.cu",
-           "trace_bvh.cu")
-HEADERS = ("trace_flat.cuh", "bounce_common.cuh")
+           "trace_bvh.cu", "fused_wave.cu")
+HEADERS = ("trace_flat.cuh", "bounce_common.cuh", "shade_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "pbrs_tpu_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points: (name, argtypes). A launcher returns cudaGetLastError().
 _SIGNATURES = {
     "pbrs_trace_flat": [_VP, _I, _I, _I, _I, _VP, _I, _VP, _VP, _I, _VP],
@@ -46,6 +47,9 @@ _SIGNATURES = {
                                _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP,
                                _VP, _VP],
     "pbrs_trace_bvh": [_VP, _VP, _VP, _I, _VP, _I, _VP, _VP, _I, _VP],
+    "pbrs_fused_wave": [_VP, _I, _I, _I, _VP, _I, _VP, _I, _F, _I, _I, _I,
+                        _I, _I, _I, _I, _VP, _I, _VP, _VP, _I, _VP, _VP, _VP,
+                        _VP],
     "pbrs_error_string": [_I],
     "pbrs_max_bank_rows": [],
     "pbrs_bvh_max_stack": [],

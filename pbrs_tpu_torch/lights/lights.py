@@ -1,7 +1,8 @@
 """Light tables: delta lights, area lights and the environment light.
-Mirrors pbrs_tpu/lights/lights.py for point/distant lights, the four area
-shapes and the none/const/gradient/dusk environments; the image
-environment raises NotImplementedError until its slice is ported.
+Mirrors pbrs_tpu/lights/lights.py: point/distant lights, the four area
+shapes and the none/const/gradient/dusk/equirect-image environments (an
+image environment carries its importance-sampling distribution,
+``lights/env_sampling.py``).
 """
 
 from __future__ import annotations
@@ -67,40 +68,71 @@ class EnvLight:
     kind: int = ENV_NONE
     color_a: torch.Tensor = None  # top / constant
     color_b: torch.Tensor = None  # bottom
+    image: torch.Tensor = None  # [H,W,3] equirect (1x1 black otherwise)
+    scale: torch.Tensor = None  # [3]
+    # Importance-sampling distribution (env_sampling.EnvDistribution) of an
+    # image environment; None = BSDF-sampled only.
+    dist: object = None
 
     def to(self, device):
-        return _to(self, device)
+        out = _to(self, device)
+        if self.dist is not None:
+            out.dist = self.dist.to(device)
+        return out
 
 
 def _f3(x):
     return torch.tensor(np.asarray(x, np.float32).reshape(3))
 
 
+def _env(kind, color_a, color_b) -> EnvLight:
+    return EnvLight(kind=kind, color_a=color_a, color_b=color_b,
+                    image=torch.zeros(1, 1, 3), scale=torch.ones(3))
+
+
 def make_env_gradient(top, bottom) -> EnvLight:
-    return EnvLight(kind=ENV_GRADIENT, color_a=_f3(top), color_b=_f3(bottom))
+    return _env(ENV_GRADIENT, _f3(top), _f3(bottom))
 
 
 def make_env_const(color) -> EnvLight:
-    return EnvLight(kind=ENV_CONST, color_a=_f3(color),
-                    color_b=torch.zeros(3, dtype=torch.float32))
+    return _env(ENV_CONST, _f3(color), torch.zeros(3, dtype=torch.float32))
 
 
 def make_env_none() -> EnvLight:
-    return EnvLight(kind=ENV_NONE, color_a=torch.zeros(3, dtype=torch.float32),
-                    color_b=torch.zeros(3, dtype=torch.float32))
+    return _env(ENV_NONE, torch.zeros(3, dtype=torch.float32),
+                torch.zeros(3, dtype=torch.float32))
 
 
 def make_env_dusk() -> EnvLight:
     """Dome over an orange horizon band."""
     horizon = torch.tensor([245, 174, 82], dtype=torch.float32) / 255.0
     dome = torch.tensor([109, 150, 204], dtype=torch.float32) / 255.0
-    return EnvLight(kind=ENV_DUSK, color_a=dome, color_b=horizon)
+    return _env(ENV_DUSK, dome, horizon)
 
 
-def make_env_image(*a, **k):
-    raise NotImplementedError(
-        "pbrs_tpu.lights.lights.make_env_image is not ported to "
-        "pbrs_tpu_torch yet")
+def make_env_image(image_hw3, scale=(1.0, 1.0, 1.0),
+                   importance: bool = True) -> EnvLight:
+    """Equirect image environment; `importance` builds its sampling
+    distribution (the env arm of NEE then samples it)."""
+    from . import env_sampling as es
+
+    img = np.asarray(image_hw3, np.float32)
+    return EnvLight(
+        kind=ENV_IMAGE, color_a=torch.zeros(3), color_b=torch.zeros(3),
+        image=torch.from_numpy(img.copy()), scale=_f3(scale),
+        dist=es.build_distribution(img, scale) if importance else None)
+
+
+def equirect_texel(d, h, w):
+    """(row, col, theta) of the equirect texel along unit directions d
+    [N,3]: phi = atan2(z, x), theta = acos(y) from +y."""
+    phi = torch.atan2(d[..., 2], d[..., 0])
+    theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
+    u = torch.remainder(phi / (2.0 * math.pi) + 0.5, 1.0)
+    v = theta / math.pi
+    col = torch.clamp((u * w).to(torch.int32), 0, w - 1)
+    row = torch.clamp((v * h).to(torch.int32), 0, h - 1)
+    return row.to(torch.int64), col.to(torch.int64), theta
 
 
 def eval_env(env: EnvLight, directions):
@@ -119,9 +151,9 @@ def eval_env(env: EnvLight, directions):
         mid = env.color_a * t + env.color_b * (1.0 - t)
         out = torch.where(tilt > math.pi * 0.25, env.color_a, mid)
         return torch.where(tilt <= 0.0, 0.2, out)
-    raise NotImplementedError(
-        f"pbrs_tpu.lights.lights.eval_env kind {env.kind} is not ported to "
-        "pbrs_tpu_torch yet")
+    # ENV_IMAGE: the nearest equirect texel.
+    row, col, _ = equirect_texel(d, env.image.shape[0], env.image.shape[1])
+    return env.image[row, col] * env.scale
 
 
 def area_rows(lights: AreaLights, idx):

@@ -1,8 +1,9 @@
 """Material table: materials compiled to per-slot lobe templates. Mirrors
-pbrs_tpu/materials/table.py for the Lambert, matte (sigma 0), metal,
-glossy, mirror, dielectric, plastic and uber materials and textured slots;
-Oren-Nayar matte, substrate and Fourier raise NotImplementedError until
-their slice is ported. The JAX package's packed one-hot row layout is not
+pbrs_tpu/materials/table.py for the Lambert, matte (Lambert or
+Oren-Nayar), metal, glossy, mirror, dielectric, plastic, substrate
+(FresnelBlend) and uber materials and textured slots; Fourier raises
+NotImplementedError until its slice is ported. The JAX package's packed
+one-hot row layout is not
 ported: a hit's row is one indexed load.
 """
 
@@ -127,10 +128,16 @@ class MaterialBuilder:
 
     def add_matte(self, albedo=None, sigma_deg: float = 0.0,
                   tex_id: int = -1) -> int:
-        """Lambert for sigma 0; Oren-Nayar otherwise (not ported yet)."""
-        if sigma_deg != 0.0:
-            _not_ported("add_matte (Oren-Nayar, sigma > 0)")
-        return self.add_lambertian(albedo, tex_id)
+        """PBRT matte: Lambert for sigma 0, else Oren-Nayar with its (A, B)
+        coefficients in alpha."""
+        if sigma_deg == 0.0:
+            return self.add_lambertian(albedo, tex_id)
+        s2 = np.radians(sigma_deg) ** 2
+        a = 1.0 - s2 / (2.0 * (s2 + 0.33))
+        b = 0.45 * s2 / (s2 + 0.09)
+        return self._add([_Lobe(
+            lb.OREN_NAYAR, albedo=albedo if albedo is not None else (0, 0, 0),
+            alpha=(a, b), tex_id=tex_id)])
 
     def add_metal(self, eta, k, fuzz: float) -> int:
         """Conductor microfacet with a white albedo."""
@@ -194,8 +201,13 @@ class MaterialBuilder:
     def add_fourier(self, *a, **k):
         _not_ported("add_fourier")
 
-    def add_substrate(self, *a, **k):
-        _not_ported("add_substrate")
+    def add_substrate(self, kd, ks, roughness: float,
+                      remap_roughness: bool = True, kd_tex: int = -1) -> int:
+        """FresnelBlend (Ashikhmin-Shirley) with a Trowbridge-Reitz NDF."""
+        alpha = _alpha(roughness) if remap_roughness else roughness
+        return self._add([_Lobe(lb.FRESNEL_BLEND, albedo=kd, specular=ks,
+                                alpha=(alpha, alpha),
+                                distrib=mf.TROWBRIDGE_REITZ, tex_id=kd_tex)])
 
     def build(self) -> MaterialTable:
         mats = self.materials or [([], np.zeros(3, np.float32))]

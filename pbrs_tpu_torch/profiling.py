@@ -4,6 +4,9 @@
         --resolution 1024x1024 --depth 5 --msaa 2 --route auto general
     python -m pbrs_tpu_torch.profiling --scene_name mesh_ball --levels 5 \\
         --resolution 800x600 --depth 6 --route auto
+    python -m pbrs_tpu_torch.profiling \\
+        --pbrt_file scenes/interior/interior.pbrt --resolution 1024x1024 \\
+        --depth 5 --route auto general
 
 For each route: wall time per sample index (host clock around work that
 ends in a synchronize), device busy time per sample (the self device time
@@ -115,6 +118,8 @@ def profile_route(scene, route, depth, msaa, samples=4, warmup=2):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="pbrs_tpu_torch.profiling")
     p.add_argument("--scene_name", default="plates")
+    p.add_argument("--pbrt_file", default=None,
+                   help="profile a PBRT scene file instead of a preset")
     p.add_argument("--resolution", default="1024x1024", metavar="WxH")
     p.add_argument("--depth", type=int, default=5)
     p.add_argument("--msaa", type=int, default=2)
@@ -129,16 +134,22 @@ def main(argv=None) -> int:
     from .scene import presets
 
     w, h = (int(x) for x in args.resolution.lower().split("x"))
-    kw = {} if args.levels is None else {"levels": args.levels}
-    scene = with_resolution(presets.PRESETS[args.scene_name](**kw), w, h).to(
-        "cuda")
+    if args.pbrt_file:
+        from .scene.pbrt import loader
+
+        scene, label = loader.build_scene(args.pbrt_file), args.pbrt_file
+    else:
+        kw = {} if args.levels is None else {"levels": args.levels}
+        scene = presets.PRESETS[args.scene_name](**kw)
+        label = args.scene_name
+    scene = with_resolution(scene, w, h).to("cuda")
     for route in args.route:
         out = profile_route(scene, route, args.depth, args.msaa,
                             samples=args.samples)
         if out["integrator"] == "fused_single_lobe":
             out["k3_per_bounce"] = single_lobe_bounce_ms(scene, args.depth,
                                                          args.msaa)
-        out.update(scene=args.scene_name, levels=args.levels,
+        out.update(scene=label, levels=args.levels,
                    resolution=args.resolution,
                    device=torch.cuda.get_device_name(0))
         print(json.dumps(out), flush=True)

@@ -7,9 +7,11 @@ index per launch, accumulating into a film. Which integrator runs:
 
 - route "auto": on CUDA, the fused diffuse kernel (K2) when the scene is
   eligible, else the fused single-lobe kernel (K3) when that one is, else
-  the general wavefront tracing through the flat-bank kernel (K1) and, for
-  every primitive family above the BVH threshold, the BVH kernel (K5); on
-  the CPU, the general wavefront with the broadcast sweep;
+  the wave path -- the shade kernel (K4) with the trace outside -- when
+  that one is, else the general wavefront; both trace through the
+  flat-bank kernel (K1) and, for every primitive family above the BVH
+  threshold, the BVH kernel (K5), plus the scene's instance groups; on the
+  CPU, the general wavefront with the broadcast sweep;
 - route "general": the general wavefront through K1 and K5 (their plain
   versions on the CPU);
 - route "plain": the general wavefront with the broadcast sweep, no kernel.
@@ -26,6 +28,7 @@ import torch
 from .accel import dispatch as trace_dispatch
 from .accel import fused_kernel as fk
 from .accel import fused_single_lobe as fsl
+from .accel import fused_wave as fw
 from .core import sampler as smp
 from .integrators import wavefront
 
@@ -77,6 +80,9 @@ def make_integrator(scene, sampler, max_depth: int, msaa: int,
         elif fsl.scene_supports_single_lobe(scene):
             name = "fused_single_lobe"
             fused = fsl.FusedSingleLobeIntegrator(scene)
+        elif fw.scene_supports_wave(scene):
+            name = "fused_wave"
+            fused = fw.FusedWaveIntegrator(scene, bvh_threshold)
     if fused is not None:
         def fused_fn(pix, s):
             return fused.render_samples(sampler, pix, s, max_depth=max_depth,

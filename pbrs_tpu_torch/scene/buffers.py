@@ -1,11 +1,15 @@
 """Scene buffers: the full scene as one dataclass. Mirrors
-pbrs_tpu/scene/buffers.py (trace-time instance groups are not ported
-yet).
+pbrs_tpu/scene/buffers.py, trace-time instance groups included.
 
 The scene is built in NumPy on the host and moved with one
 ``scene.to(device)``, so one builder serves the CPU tests and the card.
 ``scene_from_arrays`` / ``scene_to_arrays`` carry a scene across as a flat
-dict of NumPy arrays, keyed by dotted field paths ("geom.quad_u", ...).
+dict of NumPy arrays, keyed by dotted field paths ("geom.quad_u", ...):
+every key of ARRAY_KEYS, plus "env.dist.<field>" for an image
+environment's sampling distribution and "instanced.<i>.<field>" for each
+instance group (its master's geometry fields and its transforms).
+``scene_to_arrays`` reads any object with the same field names, so it also
+takes a scene of the JAX package.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import numpy as np
 import torch
 
 from ..geometry.camera import Camera
+from ..accel import instanced as inst_mod
+from ..lights import env_sampling as es
 from ..lights import lights as lt
 from ..lights.lights import AreaLights, DeltaLights, EnvLight, LightsBuilder
 from ..materials.table import MaterialBuilder, MaterialTable
@@ -33,6 +39,9 @@ class Scene:
     area_lights: AreaLights
     env: EnvLight
     camera: Camera
+    # Trace-time instance groups (accel/instanced.py): master geometry
+    # stored once + per-instance transforms.
+    instanced: tuple = ()
 
     @property
     def num_lights(self) -> int:
@@ -49,7 +58,9 @@ class Scene:
 
     def to(self, device) -> "Scene":
         return Scene(*(getattr(self, f.name).to(device)
-                       for f in dataclasses.fields(self)))
+                       for f in dataclasses.fields(self)
+                       if f.name != "instanced"),
+                     instanced=tuple(g.to(device) for g in self.instanced))
 
 
 # Field paths carried by scene_from_arrays / scene_to_arrays. The static
@@ -58,10 +69,11 @@ _TENSOR_FIELDS = {
     "geom": [f.name for f in dataclasses.fields(GeometryTables)],
     "materials": ["kind", "albedo", "specular", "alpha", "distrib",
                   "fr_kind", "eta", "eta_t", "k", "tex_id", "emission"],
-    "textures": ["kind", "color_a", "color_b", "freq"],
+    "textures": ["kind", "color_a", "color_b", "freq", "img_offset",
+                 "img_w", "img_h", "atlas"],
     "delta_lights": ["kind", "position", "color", "world_radius"],
     "area_lights": ["shape_kind", "emit", "p0", "p1", "p2", "scalar"],
-    "env": ["color_a", "color_b"],
+    "env": ["color_a", "color_b", "image", "scale"],
     "camera": ["center", "a", "b", "c", "orientation"],
 }
 _INT_FIELDS = ["delta_lights.count", "area_lights.count", "env.kind",
@@ -70,14 +82,31 @@ ARRAY_KEYS = tuple(f"{g}.{n}" for g, ns in _TENSOR_FIELDS.items()
                    for n in ns) + tuple(_INT_FIELDS)
 
 
-def scene_to_arrays(scene: Scene) -> dict:
-    """{dotted field path: np.ndarray} for every field in ARRAY_KEYS."""
+_DIST_FIELDS = ("marginal_cdf", "conditional_cdf", "pdf_img", "alias_packed")
+_GROUP_FIELDS = ("fwd", "inv", "inv_t", "bbox_lo", "bbox_hi")
+
+
+def _np(v):
+    return (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v))
+
+
+def scene_to_arrays(scene) -> dict:
+    """{dotted field path: np.ndarray}: every key of ARRAY_KEYS, the env
+    distribution's fields and every instance group's fields."""
     out = {}
     for key in ARRAY_KEYS:
         group, name = key.split(".")
-        v = getattr(getattr(scene, group), name)
-        out[key] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                    else np.asarray(v))
+        out[key] = _np(getattr(getattr(scene, group), name))
+    dist = getattr(scene.env, "dist", None)
+    if dist is not None:
+        for name in _DIST_FIELDS:
+            out[f"env.dist.{name}"] = _np(getattr(dist, name))
+    for i, grp in enumerate(getattr(scene, "instanced", ())):
+        for name in _TENSOR_FIELDS["geom"]:
+            out[f"instanced.{i}.geom.{name}"] = _np(getattr(grp.geom, name))
+        for name in _GROUP_FIELDS:
+            out[f"instanced.{i}.{name}"] = _np(getattr(grp, name))
     return out
 
 
@@ -96,6 +125,21 @@ def scene_from_arrays(d: dict) -> Scene:
     n_area = i["area_lights.count"]
     shapes = tuple(sorted({int(k) for k in
                            t["area_lights.shape_kind"].numpy()[:n_area]}))
+    env = EnvLight(kind=i["env.kind"], **g("env"))
+    if "env.dist.pdf_img" in d:
+        env.dist = es.EnvDistribution(
+            **{n: torch.from_numpy(np.array(d[f"env.dist.{n}"]))
+               for n in _DIST_FIELDS},
+            image=env.image.clone(), scale=env.scale.clone())
+    groups = []
+    while f"instanced.{len(groups)}.fwd" in d:
+        pre = f"instanced.{len(groups)}."
+        groups.append(inst_mod.InstanceGroup(
+            geom=GeometryTables(**{
+                n: torch.from_numpy(np.array(d[f"{pre}geom.{n}"]))
+                for n in _TENSOR_FIELDS["geom"]}),
+            **{n: torch.from_numpy(np.array(d[pre + n]))
+               for n in _GROUP_FIELDS}))
     return Scene(
         geom=GeometryTables(**g("geom")),
         materials=MaterialTable(
@@ -108,9 +152,10 @@ def scene_from_arrays(d: dict) -> Scene:
                                  count=i["delta_lights.count"]),
         area_lights=AreaLights(**g("area_lights"), count=n_area,
                                present_shapes=shapes or (0,)),
-        env=EnvLight(kind=i["env.kind"], **g("env")),
+        env=env,
         camera=Camera(**g("camera"), width=i["camera.width"],
                       height=i["camera.height"]),
+        instanced=tuple(groups),
     )
 
 
@@ -123,29 +168,58 @@ class SceneBuilder:
         self.textures = TextureBuilder()
         self.lights = LightsBuilder()
         self.camera: Camera | None = None
+        # (master GeometryBuilder, [4x4 object->world transforms])
+        self.instanced: list[tuple[GeometryBuilder, list]] = []
 
-    def add_instance_group(self, *a, **k):
-        raise NotImplementedError(
-            "pbrs_tpu.scene.buffers.SceneBuilder.add_instance_group is not "
-            "ported to pbrs_tpu_torch yet")
+    def add_instance_group(self, master: GeometryBuilder, transforms):
+        """A trace-time instance group: `master` holds object-space
+        geometry stored once; `transforms` are 4x4 object->world matrices,
+        one per instance (any affine)."""
+        self.instanced.append((master, [np.asarray(t, np.float64)
+                                        for t in transforms]))
+
+    @staticmethod
+    def _builder_bound(geometry: GeometryBuilder):
+        """Conservative AABB of one GeometryBuilder's primitives."""
+        lo = np.full(3, np.inf)
+        hi = np.full(3, -np.inf)
+
+        def grow(points):
+            nonlocal lo, hi
+            pts = np.atleast_2d(np.asarray(points, np.float64))
+            lo = np.minimum(lo, pts.min(axis=0))
+            hi = np.maximum(hi, pts.max(axis=0))
+
+        for c, r, _ in geometry.spheres:
+            grow([np.asarray(c) - r, np.asarray(c) + r])
+        for o, u, v, _ in geometry.quads:
+            grow([o, o + u, o + v, o + u + v])
+        for t in geometry.tris:
+            grow([t[0], t[1], t[2]])
+        for c, _, r, _ in geometry.disks:
+            rad = np.linalg.norm(r)
+            grow([np.asarray(c) - rad, np.asarray(c) + rad])
+        return lo, hi
 
     def world_bound(self):
-        """Conservative scene AABB of the accumulated primitives."""
-        g = self.geometry
-        pts = []
-        for c, r, _ in g.spheres:
-            pts += [np.asarray(c) - r, np.asarray(c) + r]
-        for o, u, v, _ in g.quads:
-            pts += [o, o + u, o + v, o + u + v]
-        for t in g.tris:
-            pts += [t[0], t[1], t[2]]
-        for c, _, r, _ in g.disks:
-            rad = np.linalg.norm(r)
-            pts += [np.asarray(c) - rad, np.asarray(c) + rad]
-        if not pts:
-            return -np.ones(3), np.ones(3)
-        pts = np.stack([np.asarray(p, np.float64) for p in pts])
-        return pts.min(axis=0), pts.max(axis=0)
+        """Conservative scene AABB of the accumulated primitives and the
+        transformed bounds of the instance groups."""
+        lo, hi = self._builder_bound(self.geometry)
+        for master, tfs in self.instanced:
+            mlo, mhi = self._builder_bound(master)
+            if not np.all(np.isfinite(mlo)):
+                continue
+            corners = np.stack(
+                [np.array([[mlo, mhi][ix][0], [mlo, mhi][iy][1],
+                           [mlo, mhi][iz][2]])
+                 for ix in (0, 1) for iy in (0, 1) for iz in (0, 1)])
+            for t in tfs:
+                wc = corners @ np.asarray(t)[:3, :3].T + np.asarray(t)[:3, 3]
+                lo = np.minimum(lo, wc.min(axis=0))
+                hi = np.maximum(hi, wc.max(axis=0))
+        if not np.all(np.isfinite(lo)):
+            lo, hi = -np.ones(3), np.ones(3)
+        return lo, hi
 
     def build(self) -> Scene:
         lo, hi = self.world_bound()
@@ -153,7 +227,12 @@ class SceneBuilder:
         self.lights.world_radius = float(np.linalg.norm(hi - lo) * 0.5
                                          + 1e-3)
         delta, area, env = self.lights.build()
+        groups = tuple(
+            inst_mod.make_group(master.build(), np.stack(tfs),
+                                self._builder_bound(master))
+            for master, tfs in self.instanced)
         return Scene(geom=self.geometry.build(),
                      materials=self.materials.build(),
                      textures=self.textures.build(), delta_lights=delta,
-                     area_lights=area, env=env, camera=self.camera)
+                     area_lights=area, env=env, camera=self.camera,
+                     instanced=groups)

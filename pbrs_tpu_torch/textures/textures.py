@@ -1,6 +1,6 @@
-"""Texture table. Mirrors pbrs_tpu/textures/textures.py for the solid,
-3D checker and Perlin-marble kinds; image textures (and their atlas) raise
-NotImplementedError until their slice is ported.
+"""Texture table. Mirrors pbrs_tpu/textures/textures.py: solid, 3D
+checker, Perlin marble and image textures (nearest texel, uv clamped, from
+one flat atlas of every image's pixels).
 
 Perlin noise is the JAX package's gather-free variant: a murmur-style
 lattice hash and Perlin's 16-direction gradients. The hash wraps like
@@ -28,18 +28,16 @@ PERLIN_OCTAVES = 7
 HASH_C = (0x8DA6B343, 0xD8163841, 0xCB1AB31F, 0x85EBCA6B)
 
 
-def _image_not_ported():
-    raise NotImplementedError(
-        "pbrs_tpu.textures.textures image textures (add_image and the "
-        "atlas) are not ported to pbrs_tpu_torch yet")
-
-
 @dataclass
 class TextureTable:
     kind: torch.Tensor  # [T] int32
     color_a: torch.Tensor  # [T,3] solid color / checker even
     color_b: torch.Tensor  # [T,3] checker odd
     freq: torch.Tensor  # [T] perlin frequency
+    img_offset: torch.Tensor  # [T] int32 offset into the atlas
+    img_w: torch.Tensor  # [T] int32
+    img_h: torch.Tensor  # [T] int32
+    atlas: torch.Tensor  # [P,3] every image's pixels, row-major
     present_kinds: tuple = (SOLID,)
 
     @property
@@ -108,11 +106,9 @@ def marble(px, py, pz, freq):
 
 
 def eval_texture(table: TextureTable, tex_id, uv, pos):
-    """Texture values [N,3] for per-hit ids [N] at positions [N,3]; uv is
-    read by image textures only. tex_id < 0 gives black."""
+    """Texture values [N,3] for per-hit ids [N] at positions [N,3]; uv [N,2]
+    is read by image textures only. tex_id < 0 gives black."""
     present = table.present_kinds
-    if IMAGE in present:
-        _image_not_ported()
     i = torch.clamp_min(tex_id, 0).to(torch.int64)
     kind = table.kind[i]
     ca, cb, freq = table.color_a[i], table.color_b[i], table.freq[i]
@@ -126,6 +122,15 @@ def eval_texture(table: TextureTable, tex_id, uv, pos):
     if PERLIN in present:
         m = marble(px, py, pz, freq)
         out = torch.where((kind == PERLIN)[..., None], m[..., None], out)
+    if IMAGE in present:
+        # Nearest texel with uv clamped to [0, 1].
+        w, h, off = table.img_w[i], table.img_h[i], table.img_offset[i]
+        u = torch.clamp(uv[..., 0], 0.0, 1.0)
+        v = torch.clamp(uv[..., 1], 0.0, 1.0)
+        col = torch.remainder((u * w).to(torch.int32), torch.clamp_min(w, 1))
+        row = torch.remainder((v * h).to(torch.int32), torch.clamp_min(h, 1))
+        pix = table.atlas[(off + row * w + col).to(torch.int64)]
+        out = torch.where((kind == IMAGE)[..., None], pix, out)
     return torch.where((tex_id < 0)[..., None], 0.0, out)
 
 
@@ -133,34 +138,58 @@ class TextureBuilder:
     """Host-side accumulator; `add_*` returns the texture id."""
 
     def __init__(self):
-        self.rows = []  # (kind, color_a, color_b, freq)
+        self.rows = []  # (kind, color_a, color_b, freq, image or None)
 
     def add_solid(self, color) -> int:
         self.rows.append((SOLID, np.asarray(color, np.float32), np.zeros(3),
-                          1.0))
+                          1.0, None))
         return len(self.rows) - 1
 
     def add_checker(self, even, odd) -> int:
         self.rows.append((CHECKER, np.asarray(even, np.float32),
-                          np.asarray(odd, np.float32), 1.0))
+                          np.asarray(odd, np.float32), 1.0, None))
         return len(self.rows) - 1
 
     def add_perlin(self, freq: float) -> int:
-        self.rows.append((PERLIN, np.zeros(3), np.zeros(3), float(freq)))
+        self.rows.append((PERLIN, np.zeros(3), np.zeros(3), float(freq), None))
         return len(self.rows) - 1
 
-    def add_image(self, *a, **k):
-        _image_not_ported()
+    def add_image(self, pixels_hw3) -> int:
+        img = np.asarray(pixels_hw3, np.float32)
+        assert img.ndim == 3 and img.shape[2] == 3
+        self.rows.append((IMAGE, np.zeros(3), np.zeros(3), 1.0, img))
+        return len(self.rows) - 1
 
-    def add_image_file(self, *a, **k):
-        _image_not_ported()
+    def add_image_file(self, path: str) -> int:
+        from ..io import image as io_image
+
+        return self.add_image(io_image.read_png_rgb(path))
 
     def build(self) -> TextureTable:
-        rows = self.rows or [(SOLID, np.zeros(3), np.zeros(3), 1.0)]
+        rows = self.rows or [(SOLID, np.zeros(3), np.zeros(3), 1.0, None)]
+        offsets, widths, heights, parts = [], [], [], []
+        cursor = 0
+        for *_, img in rows:
+            if img is None:
+                offsets.append(0)
+                widths.append(0)
+                heights.append(0)
+            else:
+                offsets.append(cursor)
+                heights.append(img.shape[0])
+                widths.append(img.shape[1])
+                parts.append(img.reshape(-1, 3))
+                cursor += img.shape[0] * img.shape[1]
+        atlas = (np.concatenate(parts, axis=0) if parts
+                 else np.zeros((1, 3), np.float32))
         t = torch.from_numpy
         kind = np.asarray([r[0] for r in rows], np.int32)
         return TextureTable(
             kind=t(kind), present_kinds=tuple(sorted(set(kind.tolist()))),
             color_a=t(np.stack([r[1] for r in rows]).astype(np.float32)),
             color_b=t(np.stack([r[2] for r in rows]).astype(np.float32)),
-            freq=t(np.asarray([r[3] for r in rows], np.float32)))
+            freq=t(np.asarray([r[3] for r in rows], np.float32)),
+            img_offset=t(np.asarray(offsets, np.int32)),
+            img_w=t(np.asarray(widths, np.int32)),
+            img_h=t(np.asarray(heights, np.int32)),
+            atlas=t(atlas.astype(np.float32)))

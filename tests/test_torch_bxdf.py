@@ -99,6 +99,11 @@ def _lobes(rng, kinds, n=N, slots=1):
         "eta_t": rng.uniform(0.1, 3.0, shape + (3,)).astype(np.float32),
         "k": rng.uniform(0.0, 5.0, shape + (3,)).astype(np.float32),
     }
+    # FresnelBlend reads Rs; Oren-Nayar reads (A, B) from alpha.
+    f["specular"] = rng.uniform(0.0, 0.6, shape + (3,)).astype(np.float32)
+    f["alpha"][..., 1] = np.where(f["kind"] == jlb.OREN_NAYAR,
+                                  rng.uniform(0.0, 0.4, shape),
+                                  f["alpha"][..., 0])
     present = tuple(sorted(set(kinds) - {0}))
     jl = jlb.Lobes(**{k: jnp.asarray(v) for k, v in f.items()},
                    present_kinds=present)
@@ -109,7 +114,8 @@ def _lobes(rng, kinds, n=N, slots=1):
 
 KINDS = {"lambert": jlb.LAMBERT, "microfacet": jlb.MICROFACET,
          "mirror": jlb.SPEC_MIRROR, "dielectric": jlb.SPEC_DIELECTRIC,
-         "transmit": jlb.SPEC_TRANSMIT}
+         "transmit": jlb.SPEC_TRANSMIT, "oren_nayar": jlb.OREN_NAYAR,
+         "fresnel_blend": jlb.FRESNEL_BLEND}
 
 
 @pytest.mark.parametrize("name", sorted(KINDS))
@@ -152,8 +158,31 @@ def test_bsdf_mixture_and_specular():
             _close(g, w, atol=2e-5, rtol=2e-4)
 
 
+def test_matte_and_substrate_rows_match_reference():
+    """add_matte(sigma > 0) builds Oren-Nayar's (A, B), add_substrate a
+    Trowbridge-Reitz FresnelBlend, row for row as pbrs_tpu's builder."""
+    from pbrs_tpu.materials import table as jmt
+    from pbrs_tpu_torch.materials import table as tmt
+
+    tables = []
+    for mod in (jmt, tmt):
+        b = mod.MaterialBuilder()
+        b.add_matte((0.6, 0.5, 0.4), sigma_deg=20.0)
+        b.add_matte((0.2, 0.3, 0.4), sigma_deg=0.0)
+        b.add_substrate((0.5, 0.3, 0.2), (0.3, 0.3, 0.3), 0.08,
+                        remap_roughness=False, kd_tex=2)
+        tables.append(b.build())
+    jt, tt = tables
+    for name in ("kind", "albedo", "specular", "alpha", "distrib", "fr_kind",
+                 "eta", "eta_t", "k", "tex_id", "emission"):
+        np.testing.assert_array_equal(getattr(tt, name).numpy(),
+                                      np.asarray(getattr(jt, name)), name)
+    assert tt.present_kinds == jt.present_kinds
+    assert tt.textured_slots == jt.textured_slots
+
+
 def test_unported_kinds_raise():
     rng = np.random.default_rng(3)
-    _, tl = _lobes(rng, [jlb.OREN_NAYAR])
+    _, tl = _lobes(rng, [jlb.FOURIER])
     with pytest.raises(NotImplementedError, match="not ported"):
         tlb.eval_lobe(tlb.slot(tl, 0), torch.zeros(N, 3), torch.zeros(N, 3))

@@ -13,6 +13,7 @@ import pbrs_tpu_torch
 from pbrs_tpu_torch import kernels
 from pbrs_tpu_torch.accel import fused_kernel as fk
 from pbrs_tpu_torch.accel import fused_single_lobe as fsl
+from pbrs_tpu_torch.accel import fused_wave as fw
 from pbrs_tpu_torch.accel import trace_kernel as tk
 from pbrs_tpu_torch.accel import treelet as tl
 from pbrs_tpu_torch.geometry import ray as ray_mod
@@ -64,16 +65,17 @@ def test_kernel_sources_listed_and_flags():
     listed = {p.name for p in kernels.source_paths()}
     on_disk = {f for f in os.listdir(kernels.CSRC)
                if f.endswith((".cu", ".cuh"))}
-    assert listed == on_disk and {"trace_flat.cu", "fused_bounce.cu",
-                                  "fused_single_lobe.cu",
-                                  "trace_bvh.cu"} <= listed
+    assert listed == on_disk and {
+        "trace_flat.cu", "fused_bounce.cu", "fused_single_lobe.cu",
+        "trace_bvh.cu", "fused_wave.cu", "shade_common.cuh"} <= listed
     flags = " ".join(kernels.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "-fmad=false" in flags and "fast_math" not in flags
     replaced = {"trace_flat.cu": "trace_pallas.py:_trace_kernel",
                 "fused_bounce.cu": "fused_kernel.py:_bounce_kernel",
                 "fused_single_lobe.cu": "fused_single_lobe.py:_bounce2_kernel",
-                "trace_bvh.cu": "treelet.py:_treelet_kernel"}
+                "trace_bvh.cu": "treelet.py:_treelet_kernel",
+                "fused_wave.cu": "fused_wave.py:_shade_kernel"}
     for name, pallas in replaced.items():
         assert pallas in (kernels.CSRC / name).read_text()
     # The library name follows the sources' content hash.
@@ -100,11 +102,34 @@ def test_wrappers_take_no_other_device():
     with pytest.raises(ValueError):
         fk.bounce(None, fin, None, None, None, None, seed=0, bounce=0,
                   bounce_is_first=True, rr_active=False)
+    with pytest.raises(ValueError):
+        fw.shade(None, fin, fin, None, seed=0, bounce=0, first=True,
+                 rr_on=False)
 
 
 def test_launch_counters_start_at_zero():
     assert tk.LAUNCHES == 0 and fk.LAUNCHES == 0 and fsl.LAUNCHES == 0
-    assert tl.LAUNCHES == 0
+    assert tl.LAUNCHES == 0 and fw.LAUNCHES == 0
+
+
+def test_new_modules_import_without_jax():
+    """The slice's host copies and wave modules alone leave jax, flax and
+    pbrs_tpu out of sys.modules (with the package's own imports)."""
+    code = (
+        "import sys\n"
+        "import pbrs_tpu_torch.accel.fused_wave\n"
+        "import pbrs_tpu_torch.accel.instanced\n"
+        "import pbrs_tpu_torch.lights.env_sampling\n"
+        "import pbrs_tpu_torch.radiometry, pbrs_tpu_torch.core.spline\n"
+        "import pbrs_tpu_torch.scene.pbrt.loader\n"
+        "import pbrs_tpu_torch.lane_diff\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'pbrs_tpu')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                   check=True, timeout=120)
 
 
 def test_every_source_is_compiled_on_its_own():

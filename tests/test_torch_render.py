@@ -74,7 +74,7 @@ def test_cli_writes_exr(tmp_path, capsys):
     assert "plain path on cpu" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--pbrt_file", "scene.pbrt"],
+@pytest.mark.parametrize("argv", [["--checkpoint", "film.npz"],
                                   ["--scene_name", "fourier_plastic"],
                                   ["--integrator", "direct"]])
 def test_cli_refuses_unported(argv):

@@ -99,13 +99,18 @@ def test_camera_rays_match(sample):
 
 
 def test_unported_parts_raise():
+    """The Fourier BSDF is SceneBuilder's one unported part; instance
+    groups, image textures and Oren-Nayar matte build."""
     b = buffers.SceneBuilder()
-    with pytest.raises(NotImplementedError, match="add_instance_group"):
-        b.add_instance_group(None)
+    with pytest.raises(NotImplementedError, match="add_fourier"):
+        b.materials.add_fourier(None)
     assert set(presets.PRESETS) == {
         "cornell_box", "quad", "quad_light", "two_perlin_spheres", "earth",
         "mixed_spheres", "plates", "env_mapped", "everything", "mesh_ball"}
-    with pytest.raises(NotImplementedError, match="image textures"):
-        b.textures.add_image(np.zeros((2, 2, 3)))
-    with pytest.raises(NotImplementedError, match="Oren-Nayar"):
-        b.materials.add_matte((0.5, 0.5, 0.5), sigma_deg=20.0)
+    master = GeometryBuilder()
+    master.add_sphere((0, 0, 0), 1.0, 0)
+    b.add_instance_group(master, [np.eye(4)])
+    assert b.textures.add_image(np.zeros((2, 2, 3))) == 0
+    assert b.materials.add_matte((0.5, 0.5, 0.5), sigma_deg=20.0) == 0
+    b.camera = tcam.make_camera((4, 4), 40.0)
+    assert len(b.build().instanced) == 1
