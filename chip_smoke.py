@@ -14,8 +14,16 @@ through the wave path (shade kernel K4) and the general path, both tracing
 with the flat trace (K1) and the BVH trace (K5), and the PBRT interior
 (scenes/interior/interior.pbrt) 1024^2, depth 5, through K4 and the general
 path, plus one timed sample of its 1920x1080, depth-8 cell; msaa 2, PCG
-seed 0 -- and runs the CLI. Every phase prints one line or more; a failing
-phase raises, so the script exits non-zero.
+seed 0 -- and runs the CLI. Then the slice of the Sobol' sampler, folded
+NEE and the direct integrator (phases 18-24): the Cornell, plates and
+interior paths on the Sobol' sampler through K2-Sobol, K3-Sobol and
+K4-Sobol and the general path, each held per lane against the general
+path; every Sobol' kernel against its plain version; the interior and
+mesh_ball through K4 folded and the folded general path beside their
+two-arm twins, held per lane; K4 folded against its plain version; and
+Cornell 256^2 through the direct integrator (benchmarks.json
+cornell_direct_256_16spp) and both visualizers. Every phase prints one
+line or more; a failing phase raises, so the script exits non-zero.
 There is no CPU path: without a CUDA device the script fails. The line
 before the last is {"kernels": [...]}, one entry per kernel with its
 launches on its main path, error against its plain version, device time,
@@ -276,16 +284,29 @@ def sky_scene(size, env):
     return b.build()
 
 
-def bounce_parity(dev, scene, label, report):
+def sampler_of(rng):
+    """Seed 0 of the sampler kind `rng` ("pcg", "sobol", "threefry")."""
+    from pbrs_tpu_torch import render
+
+    return render.SAMPLERS[rng](0)
+
+
+def variant(kernel, rng="pcg", folded=False):
+    """A kernel's label in the phase lines: K2, K2-Sobol, K4-folded, ..."""
+    return kernel + ("-Sobol" if rng == "sobol" else "") + (
+        "-folded" if folded else "")
+
+
+def bounce_parity(dev, scene, label, report, rng="pcg"):
     """K2 vs its plain version on identical planes at bounces 0 and 5 (the
-    planes after five plain bounces). Returns the bounce-0 inputs."""
+    planes after five plain bounces), drawing `rng`. Returns the bounce-0
+    inputs."""
     from pbrs_tpu_torch.accel import fused_kernel as fk
-    from pbrs_tpu_torch.core import sampler as smp
     from pbrs_tpu_torch.integrators import wavefront
 
     scene = scene.to(dev)
     tab = fk.FusedTables.from_scene(scene)
-    sampler = smp.PCGSampler(0)
+    sampler = sampler_of(rng)
     n = scene.camera.width * scene.camera.height
     pix = torch.arange(n, dtype=torch.int32, device=dev)
     samp = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -296,7 +317,7 @@ def bounce_parity(dev, scene, label, report):
     inputs = {}
     for b in range(6):
         kw = dict(seed=sampler.seed, bounce=b, bounce_is_first=b == 0,
-                  rr_active=b > 3)
+                  rr_active=b > 3, rng=rng)
         inputs[b] = (tab, fin, alive, pix, samp, kw)
         fout, alive, _ = fk.bounce_reference(tab, fin, alive, pix, samp, **kw)
         fin = fout[3:].contiguous()
@@ -313,30 +334,36 @@ def bounce_parity(dev, scene, label, report):
         err = float((out_k - out_p).abs().max())
         report["max_abs_err"] = max(report["max_abs_err"], err)
         live = int((alive_in > 0).sum())
-        print(f"phase 3 K2 {label} bounce {b}: {n} lanes, {live} alive; "
+        print(f"phase {report['phase']} {variant('K2', rng)} {label} bounce "
+              f"{b}: {n} lanes, {live} alive; "
               f"outside atol {ATOL} rtol {RTOL}: {lane_bad}; alive differs "
               f"{alive_bad}; not bit-equal {exact_bad}; max |d| {err:.3g}; "
               f"rays kernel {int(cnt_k)} plain {int(cnt_p)}")
-        if (lane_bad > 1e-3 * n or alive_bad > 1e-3 * n
+        if (lane_bad or exact_bad or alive_bad
                 or int(cnt_k) != int(cnt_p)):
-            raise AssertionError(f"K2 disagrees with its plain version on "
-                                 f"{label} at bounce {b}")
+            raise AssertionError(f"{variant('K2', rng)} disagrees with its "
+                                 f"plain version on {label} at bounce {b}")
     return inputs[0]
 
 
-def phase_bounce(dev):
+def phase_bounce(dev, rng="pcg", phase=3):
     """K2 vs its plain version: Cornell at 1024^2 (the main path's shape)
-    and the sphere/sky scene at 256^2 with both sky kinds."""
+    and the sphere/sky scene at 256^2 with both sky kinds, drawing `rng`.
+    A Sobol' run also times K2's PCG twin on the same planes."""
     from pbrs_tpu_torch.accel import fused_kernel as fk
 
-    report = {"max_abs_err": 0.0}
+    report = {"max_abs_err": 0.0, "phase": phase}
     tab, fin, alive, pix, samp, kw = bounce_parity(dev, cornell(SIZE),
-                                                   "cornell", report)
+                                                   "cornell", report, rng)
     for env in ("gradient", "const"):
-        bounce_parity(dev, sky_scene(256, env), f"spheres+{env} sky", report)
+        bounce_parity(dev, sky_scene(256, env), f"spheres+{env} sky", report,
+                      rng)
     cnt = torch.zeros(1, dtype=torch.int64, device=dev)
     report["ms"] = cuda_ms(
         lambda: fk.bounce(tab, fin, alive, pix, samp, cnt, **kw), 20)
+    if rng != "pcg":
+        report["twin_ms"] = cuda_ms(lambda: fk.bounce(
+            tab, fin, alive, pix, samp, cnt, **{**kw, "rng": "pcg"}), 20)
     report["plain_ms"] = cuda_ms(
         lambda: fk.bounce_reference(tab, fin, alive, pix, samp, **kw), 3)
     n = fin.shape[1]
@@ -347,9 +374,12 @@ def phase_bounce(dev):
         n * (9 * 4 + 3 * 4 + 12 * 4 + 4)
         + 4 * (tab.bank.numel() + tab.mats.numel() + tab.lights.numel()),
         int((alive > 0).sum()) * sweep_ops(tab.counts))
-    print(f"phase 3 K2 time at {n} lanes (Cornell bounce 0): "
-          f"kernel {report['ms']:.4f} ms, plain {report['plain_ms']:.4f} ms, "
-          f"bound {report['bound_ms']:.4f} ms ({report['bound_by']})")
+    twin = (f", PCG twin on the same planes {report['twin_ms']:.4f} ms"
+            if "twin_ms" in report else "")
+    print(f"phase {phase} {variant('K2', rng)} time at {n} lanes (Cornell "
+          f"bounce 0): kernel {report['ms']:.4f} ms, plain "
+          f"{report['plain_ms']:.4f} ms, bound {report['bound_ms']:.4f} ms "
+          f"({report['bound_by']}){twin}")
     return report
 
 
@@ -374,17 +404,20 @@ def phase_golden(dev):
             raise AssertionError(f"golden checksum via {name} drifted")
 
 
-def run_main_path(scene, route, pix, depth=DEPTH, reps=REPS):
-    """bench.py's timing loop: 1 warm-up sample, then reps x SAMPLES."""
+def run_main_path(scene, route, pix, depth=DEPTH, reps=REPS, sampler="pcg",
+                  msaa=MSAA, **kw):
+    """bench.py's timing loop: 1 warm-up sample, then reps x SAMPLES, on
+    seed 0 of `sampler`; kw goes to render.make_integrator. Returns (name,
+    median Mrays/s, median ms/sample, checksum of the first rep, traced
+    segments a sample in the first rep)."""
     from pbrs_tpu_torch import render
-    from pbrs_tpu_torch.core import sampler as smp
 
-    name, step = render.make_integrator(scene, smp.PCGSampler(0), depth, MSAA,
-                                        route)
+    name, step = render.make_integrator(scene, sampler_of(sampler), depth,
+                                        msaa, route, **kw)
     for s in range(WARMUP):
         step(pix, s)
     torch.cuda.synchronize()
-    rates, walls, checksum = [], [], 0.0
+    rates, walls, checksum, first = [], [], 0.0, 0
     for rep in range(reps):
         torch.cuda.synchronize()
         t0 = time.time()
@@ -400,8 +433,9 @@ def run_main_path(scene, route, pix, depth=DEPTH, reps=REPS):
         dt = time.time() - t0
         rates.append(rays / dt / 1e6)
         walls.append(dt / SAMPLES)
+        first = first or rays // SAMPLES
     med = sorted(rates)[reps // 2]
-    return name, med, sorted(walls)[reps // 2], checksum
+    return name, med, sorted(walls)[reps // 2], checksum, first
 
 
 def phase_main(dev, smi):
@@ -417,7 +451,7 @@ def phase_main(dev, smi):
         results[route] = run_main_path(scene, route, pix)
     launches = {"trace_flat": tk.LAUNCHES, "fused_bounce": fk.LAUNCHES}
     results["plain"] = run_main_path(scene, "plain", pix)
-    for route, (name, mrays, wall, checksum) in results.items():
+    for route, (name, mrays, wall, checksum, _) in results.items():
         print(f"phase 5 main path {route} -> {name}: Cornell {SIZE}^2 depth "
               f"{DEPTH} msaa {MSAA}: median {mrays:.3f} Mrays/s, "
               f"{wall * 1e3:.2f} ms/sample, checksum {checksum:.6e} "
@@ -465,6 +499,23 @@ def phase_cli():
             or "fused_wave path" not in last):
         raise AssertionError("the CLI's interior render did not go through "
                              "K4 to a lit image")
+    # The direct integrator on the Sobol' sampler through the CLI.
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "direct.exr")
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            rc = cli.main(["--scene_name", "cornell_box", "--resolution",
+                           "128x128", "--msaa", "2", "--depth", "2",
+                           "--integrator", "direct", "--sampler", "sobol",
+                           "--output", out])
+        img = image.read_exr(out)
+    last = said.getvalue().strip().splitlines()[-2]
+    print(f"phase 6 cli --integrator direct --sampler sobol: rc {rc}, image "
+          f"{img.shape}, mean {img.mean():.5f}; {last}")
+    if (rc != 0 or img.shape != (128, 128, 3) or float(img.mean()) <= 0
+            or "direct path" not in last):
+        raise AssertionError("the CLI's direct Sobol' render is not a finite, "
+                             "lit image")
 
 
 # ---------------------- K3: the fused single-lobe bounce ---------------------
@@ -576,11 +627,10 @@ def preset_at(name, w, h=None):
     return cli.with_resolution(presets.PRESETS[name](), w, h or w)
 
 
-def k3_inputs(dev, scene, bounce):
+def k3_inputs(dev, scene, bounce, rng="pcg"):
     """The K3 tables and the bounce-`bounce` input planes of a scene, reached
-    through the plain version from sample 0's camera rays."""
+    through the plain version from sample 0's camera rays, drawing `rng`."""
     from pbrs_tpu_torch.accel import fused_single_lobe as fsl
-    from pbrs_tpu_torch.core import sampler as smp
     from pbrs_tpu_torch.integrators import wavefront
 
     scene = scene.to(dev)
@@ -590,13 +640,14 @@ def k3_inputs(dev, scene, bounce):
     n = scene.camera.width * scene.camera.height
     pix = torch.arange(n, dtype=torch.int32, device=dev)
     samp = torch.zeros(n, dtype=torch.int32, device=dev)
-    rays = wavefront.camera_rays(scene, smp.PCGSampler(0), pix, 0, MSAA)
+    rays = wavefront.camera_rays(scene, sampler_of(rng), pix, 0, MSAA)
     fin = torch.cat([rays.origin.T, rays.dir.T,
                      torch.ones(3, n, device=dev)]).contiguous()
     alive = torch.ones(n, dtype=torch.int32, device=dev)
     spec = torch.zeros(n, dtype=torch.int32, device=dev)
     for b in range(bounce + 1):
-        kw = dict(seed=0, bounce=b, bounce_is_first=b == 0, rr_active=b > 3)
+        kw = dict(seed=0, bounce=b, bounce_is_first=b == 0, rr_active=b > 3,
+                  rng=rng)
         if b == bounce:
             return tab, (fin, alive, spec, pix, samp), kw
         fout, alive, spec, _ = fsl.bounce2_reference(tab, fin, alive, spec,
@@ -604,10 +655,10 @@ def k3_inputs(dev, scene, bounce):
         fin = fout[3:].contiguous()
 
 
-def k3_parity(dev, label, scene, bounce, report):
+def k3_parity(dev, label, scene, bounce, report, rng="pcg"):
     from pbrs_tpu_torch.accel import fused_single_lobe as fsl
 
-    tab, lanes, kw = k3_inputs(dev, scene, bounce)
+    tab, lanes, kw = k3_inputs(dev, scene, bounce, rng)
     fin, alive_in = lanes[0], lanes[1]
     cnt_k = torch.zeros(1, dtype=torch.int64, device=dev)
     out_k, alive_k, spec_k = fsl.bounce2(tab, *lanes, cnt_k, **kw)
@@ -620,37 +671,42 @@ def k3_parity(dev, label, scene, bounce, report):
     exact_bad = int((out_k != out_p).any(dim=0).sum())
     err = float((out_k - out_p).abs().max())
     report["max_abs_err"] = max(report["max_abs_err"], err)
-    print(f"phase 7 K3 {label} bounce {bounce}: {n} lanes, "
+    print(f"phase {report['phase']} {variant('K3', rng)} {label} bounce "
+          f"{bounce}: {n} lanes, "
           f"{int((alive_in > 0).sum())} alive; outside atol {K3_ATOL} rtol "
           f"{K3_RTOL}: {lane_bad}; alive/spec differ {alive_bad}; not "
           f"bit-equal {exact_bad}; max |d| {err:.3g}; rays kernel "
           f"{int(cnt_k)} plain {int(cnt_p)}")
-    if lane_bad or alive_bad or int(cnt_k) != int(cnt_p):
-        raise AssertionError(f"K3 disagrees with its plain version on "
-                             f"{label} at bounce {bounce}")
+    if lane_bad or exact_bad or alive_bad or int(cnt_k) != int(cnt_p):
+        raise AssertionError(f"{variant('K3', rng)} disagrees with its plain "
+                             f"version on {label} at bounce {bounce}")
     return tab, lanes, kw
 
 
-def phase_single_lobe(dev):
+def phase_single_lobe(dev, rng="pcg", phase=7):
     """K3 vs its plain version: plates at 1024^2 (the main path's shape) at
     bounces 0 and 2, then six scenes at 256^2 that take K3's other
-    branches; K3's and the plain version's device time at plates bounce
-    0."""
+    branches, drawing `rng`; K3's and the plain version's device time at
+    plates bounce 0 (and, for Sobol', the PCG twin's on the same
+    planes)."""
     from pbrs_tpu_torch.accel import fused_single_lobe as fsl
 
-    report = {"max_abs_err": 0.0}
+    report = {"max_abs_err": 0.0, "phase": phase}
     plates = preset_at("plates", SIZE)
-    tab, lanes, kw = k3_parity(dev, "plates", plates, 0, report)
-    k3_parity(dev, "plates", plates, 2, report)
+    tab, lanes, kw = k3_parity(dev, "plates", plates, 0, report, rng)
+    k3_parity(dev, "plates", plates, 2, report, rng)
     for label, scene in (("zoo", zoo_scene(256)),
                          ("plastic/uber", plastic_scene(256)),
                          ("textured", textured_scene(256)),
                          ("shaped lights", shaped_lights_scene(256)),
                          ("env_mapped", preset_at("env_mapped", 256)),
                          ("mixed_spheres", preset_at("mixed_spheres", 256))):
-        k3_parity(dev, label, scene, 0, report)
+        k3_parity(dev, label, scene, 0, report, rng)
     cnt = torch.zeros(1, dtype=torch.int64, device=dev)
     report["ms"] = cuda_ms(lambda: fsl.bounce2(tab, *lanes, cnt, **kw), 20)
+    if rng != "pcg":
+        report["twin_ms"] = cuda_ms(lambda: fsl.bounce2(
+            tab, *lanes, cnt, **{**kw, "rng": "pcg"}), 20)
     report["plain_ms"] = cuda_ms(
         lambda: fsl.bounce2_reference(tab, *lanes, **kw), 3)
     n = lanes[0].shape[1]
@@ -662,9 +718,12 @@ def phase_single_lobe(dev):
     report["bound_ms"], report["bound_by"] = bound(
         n * (9 * 4 + 4 * 4 + 12 * 4 + 2 * 4) + 4 * tables,
         int((lanes[1] > 0).sum()) * sweep_ops(tab.counts))
-    print(f"phase 7 K3 time at {n} lanes (plates bounce 0): kernel "
-          f"{report['ms']:.4f} ms, plain {report['plain_ms']:.4f} ms, bound "
-          f"{report['bound_ms']:.4f} ms ({report['bound_by']})")
+    twin = (f", PCG twin on the same planes {report['twin_ms']:.4f} ms"
+            if "twin_ms" in report else "")
+    print(f"phase {phase} {variant('K3', rng)} time at {n} lanes (plates "
+          f"bounce 0): kernel {report['ms']:.4f} ms, plain "
+          f"{report['plain_ms']:.4f} ms, bound {report['bound_ms']:.4f} ms "
+          f"({report['bound_by']}){twin}")
     return report
 
 
@@ -711,7 +770,7 @@ def phase_plates_main(dev, smi):
     launches = {"trace_flat": tk.LAUNCHES, "fused_single_lobe": fsl.LAUNCHES}
     results["plain"] = run_main_path(scene, "plain", pix, PLATES_DEPTH,
                                      reps=1)
-    for route, (name, mrays, wall, checksum) in results.items():
+    for route, (name, mrays, wall, checksum, _) in results.items():
         print(f"phase 9 main path {route} -> {name}: plates {SIZE}^2 depth "
               f"{PLATES_DEPTH} msaa {MSAA}: median {mrays:.3f} Mrays/s, "
               f"{wall * 1e3:.2f} ms/sample, checksum {checksum:.6e} "
@@ -742,16 +801,15 @@ def mesh_scene(name):
     return presets.everything()
 
 
-def main_path_launches(dev, scene, depth):
+def main_path_launches(dev, scene, depth, rng="pcg", nee_mode="twoarm"):
     """Every K1, K4 and K5 launch of sample 0 of a scene's main path (route
-    auto, at full width), kept with its inputs: {"k1": [(bank, counts,
-    planes, any_hit)], "k5": [(family tracer, planes, any_hit)], "k4":
-    [(tables, fin, iin, keywords)]}."""
+    auto, at full width, sampler `rng`, NEE `nee_mode`), kept with its
+    inputs: {"k1": [(bank, counts, planes, any_hit)], "k5": [(family
+    tracer, planes, any_hit)], "k4": [(tables, fin, iin, keywords)]}."""
     from pbrs_tpu_torch import render
     from pbrs_tpu_torch.accel import fused_wave as fw
     from pbrs_tpu_torch.accel import trace_kernel as tk
     from pbrs_tpu_torch.accel import treelet as tl
-    from pbrs_tpu_torch.core import sampler as smp
 
     seen = {"k1": [], "k5": [], "k4": []}
     launch_k1, launch_k5, launch_k4 = (tk.trace_planes, tl.trace_planes,
@@ -771,8 +829,8 @@ def main_path_launches(dev, scene, depth):
 
     n = scene.camera.width * scene.camera.height
     pix = torch.arange(n, dtype=torch.int32, device=dev)
-    _, step = render.make_integrator(scene, smp.PCGSampler(0), depth, MSAA,
-                                     "auto")
+    _, step = render.make_integrator(scene, sampler_of(rng), depth, MSAA,
+                                     "auto", nee_mode=nee_mode)
     tk.trace_planes, tl.trace_planes, fw.shade = (record_k1, record_k5,
                                                    record_k4)
     try:
@@ -1052,7 +1110,7 @@ def phase_mesh_main(dev, smi):
         k1, k5, k4 = tk.LAUNCHES, tl.LAUNCHES, fw.LAUNCHES
         for route in ("auto", "general"):
             results[route] = run_main_path(scene, route, pix, depth)
-        for route, (got, mrays, wall, checksum) in results.items():
+        for route, (got, mrays, wall, checksum, _) in results.items():
             print(f"phase 12 main path {route} -> {got}: {name} {w}x{h} depth "
                   f"{depth} msaa {MSAA}: median {mrays:.3f} Mrays/s, "
                   f"{wall * 1e3:.2f} ms/sample, checksum {checksum:.6e} "
@@ -1188,63 +1246,83 @@ def k4_compare(tab, fin, iin, kw):
             "live": int((iin[2] > 0).sum()), "lanes": fin.shape[1]}
 
 
-def phase_wave(dev, seen):
+def phase_wave(dev, seen, rng="pcg", nee_mode="twoarm", phase=13):
     """K4 against its plain version on every K4 launch of sample 0 of the
-    interior main path (1024^2, depth 5) and of the wave zoo at 256^2;
-    K4's device time per launch (CUDA events, the device put to sleep
-    first), its plain version's, and the bound, over the interior
-    launches."""
+    interior main path (1024^2, depth 5) and of the wave zoo at 256^2,
+    drawing `rng` with `nee_mode` NEE; K4's device time per launch (CUDA
+    events, the device put to sleep first), its plain version's, and the
+    bound, over the interior launches (and, for a Sobol' or folded
+    variant, the PCG two-arm twin's time on the same planes)."""
     from pbrs_tpu_torch.accel import fused_wave as fw
 
+    folded = nee_mode == "folded"
+    name = variant("K4", rng, folded)
     report = {"max_abs_err": 0.0}
     zoo = wave_zoo_scene(256).to(dev)
     if not fw.scene_supports_wave(zoo):
         raise AssertionError("the wave zoo is not wave-eligible")
     launches = {"interior": seen["k4"],
-                "zoo": main_path_launches(dev, zoo, 5)["k4"]}
+                "zoo": main_path_launches(dev, zoo, 5, rng, nee_mode)["k4"]}
     for label, rows in launches.items():
         if not rows:
             raise AssertionError(f"{label}: no K4 launch on its main path")
         for i, (tab, fin, iin, kw) in enumerate(rows):
+            if (kw.get("rng", "pcg"), kw.get("folded", False)) != (rng,
+                                                                   folded):
+                raise AssertionError(f"{label}: a K4 launch of another "
+                                     f"variant: {kw}")
             got = k4_compare(tab, fin, iin, kw)
             report["max_abs_err"] = max(report["max_abs_err"], got["err"])
-            print(f"phase 13 K4 {label} launch {i} (bounce {kw['bounce']}, "
+            print(f"phase {phase} {name} {label} launch {i} (bounce "
+                  f"{kw['bounce']}, "
                   f"{tab.n_slots} slots): {got['lanes']} lanes, {got['live']} "
                   f"alive; outside atol {K4_ATOL} rtol {K4_RTOL}: "
                   f"{got['outside']}; not bit-equal {got['not_bit_equal']}; "
                   f"alive/spec differ {got['alive']}; max |d| "
                   f"{got['err']:.3g}; shadow rays kernel {got['rays_k']} "
                   f"plain {got['rays_p']}")
-            if (got["outside"] or got["alive"]
+            if (got["outside"] or got["not_bit_equal"] or got["alive"]
                     or got["rays_k"] != got["rays_p"]):
-                raise AssertionError(f"K4 disagrees with its plain version on "
-                                     f"{label} launch {i}")
-    per = {"ms": [], "plain_ms": [], "bound_ms": [], "bound_by": []}
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version on {label} launch {i}")
+    per = {"ms": [], "plain_ms": [], "bound_ms": [], "bound_by": [],
+           "twin_ms": []}
     cnt = torch.zeros(1, dtype=torch.int64, device=dev)
+    # Folded, K4 need not write the second shadow query's direction and
+    # side (4 planes).
+    n_out = fw.N_OUT - (4 if folded else 0)
     for i, (tab, fin, iin, kw) in enumerate(launches["interior"]):
         n = fin.shape[1]
         ms = cuda_ms(lambda: fw.shade(tab, fin, iin, cnt, **kw), 5)
+        twin = {**kw, "rng": "pcg", "folded": False}
+        twin_ms = (cuda_ms(lambda: fw.shade(tab, fin, iin, cnt, **twin), 5)
+                   if twin != kw else ms)
         plain_ms = cuda_ms(lambda: fw.shade_reference(tab, fin, iin, **kw), 1)
         ops = k4_ops(tab, fin, iin, kw)
         # Each input plane read once and each output written once a lane,
         # the tables once.
-        moved = n * 4 * (fin.shape[0] + fw.N_INT + fw.N_OUT + 2) + 4 * sum(
+        moved = n * 4 * (fin.shape[0] + fw.N_INT + n_out + 2) + 4 * sum(
             t.numel() for t in (tab.mats, tab.lights, tab.delta))
         b_ms, b_by = bound(moved, ops)
-        print(f"phase 13 K4 time, interior launch {i}: {n} lanes, "
-              f"{int((iin[2] > 0).sum())} alive; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-              f"{moved / 1e6:.1f} MB, {ops / n:.0f} plain-version float ops a "
-              f"lane)")
-        for key, v in zip(("ms", "plain_ms", "bound_ms", "bound_by"),
-                          (ms, plain_ms, b_ms, b_by)):
+        twin_said = (f", K4 PCG two-arm on the same planes {twin_ms:.4f} ms"
+                     if twin != kw else "")
+        print(f"phase {phase} {name} time, interior launch {i}: {n} lanes, "
+              f"{int((iin[2] > 0).sum())} alive; kernel {ms:.4f} ms"
+              f"{twin_said}, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}: {moved / 1e6:.1f} MB, {ops / n:.0f} plain-version "
+              f"float ops a lane)")
+        for key, v in zip(("ms", "plain_ms", "bound_ms", "bound_by",
+                           "twin_ms"), (ms, plain_ms, b_ms, b_by, twin_ms)):
             per[key].append(v)
     k = len(per["ms"])
-    for key in ("ms", "plain_ms", "bound_ms"):
+    for key in ("ms", "plain_ms", "bound_ms", "twin_ms"):
         report[key] = sum(per[key]) / k
     report["bound_by"] = max(set(per["bound_by"]), key=per["bound_by"].count)
-    print(f"phase 13 K4 mean over the {k} interior launches: kernel "
-          f"{report['ms']:.4f} ms, plain {report['plain_ms']:.4f} ms, bound "
+    twin_said = (f", PCG two-arm twin {report['twin_ms']:.4f} ms"
+                 if (rng, folded) != ("pcg", False) else "")
+    print(f"phase {phase} {name} mean over the {k} interior launches: kernel "
+          f"{report['ms']:.4f} ms{twin_said}, plain "
+          f"{report['plain_ms']:.4f} ms, bound "
           f"{report['bound_ms']:.4f} ms ({report['bound_by']}); per sample: "
           f"kernel {sum(per['ms']):.4f} ms")
     return report
@@ -1340,7 +1418,7 @@ def phase_interior_main(dev, smi):
         launches[route] = {"trace_flat": tk.LAUNCHES,
                            "trace_bvh": tl.LAUNCHES,
                            "fused_wave": fw.LAUNCHES}
-    for route, (name, mrays, wall, checksum) in results.items():
+    for route, (name, mrays, wall, checksum, _) in results.items():
         print(f"phase 15 main path {route} -> {name}: interior {SIZE}^2 depth "
               f"5 msaa {MSAA}: median {mrays:.3f} Mrays/s, {wall * 1e3:.2f} "
               f"ms/sample, checksum {checksum:.6e} [{smi}]")
@@ -1396,85 +1474,302 @@ def phase_interior_1080(dev, smi):
                              "lit K4 render")
 
 
-def phase_wave_vs_general(dev):
+def wave_vs_general(dev, label, scene, depth, rng="pcg", nee_mode="twoarm",
+                    phase=17):
     """The wave path (route auto's integrator) against the general path
-    (route general) per lane, sample 0, at full width: the interior 1024^2
-    depth 5, everything 800^2 depth 5, mesh_ball(levels=5) 800x600 depth
-    6. A lane whose path reaches a Perlin-marble surface is counted apart:
-    at everything's scale (coordinates to ~1000, the marble's top octave at
-    640 lattice cells a unit) one float32 ulp of hit position moves the
-    marble by ~0.3%, so the two paths' rounding differences there exceed
-    the per-lane tolerance; pbrs_tpu's own wave and general paths split
-    the same way (ROADMAP Queue 3). Limits: at most 0.01% of the other
-    lanes outside atol K4_ATOL, rtol K4_RTOL; at most MARBLE_SHARE of the
-    Perlin lanes outside atol K4_ATOL, rtol MARBLE_RTOL; the checksums
-    within GOLDEN_REL_TOL. Each lane outside tolerance is classified by
+    (route general) per lane, sample 0, at full width, on sampler `rng`
+    with `nee_mode` NEE. A lane whose path reaches a Perlin-marble surface
+    is counted apart: at everything's scale (coordinates to ~1000, the
+    marble's top octave at 640 lattice cells a unit) one float32 ulp of
+    hit position moves the marble by ~0.3%, so the two paths' rounding
+    differences there exceed the per-lane tolerance; pbrs_tpu's own wave
+    and general paths split the same way (ROADMAP Queue 3). Limits: at
+    most 0.01% of the other lanes outside atol K4_ATOL, rtol K4_RTOL; at
+    most MARBLE_SHARE of the Perlin lanes outside atol K4_ATOL, rtol
+    MARBLE_RTOL; the checksums within GOLDEN_REL_TOL; a Sobol' or folded
+    run also holds the traced-ray counts equal but for the segments of the
+    lanes outside tolerance. Each lane outside tolerance is classified by
     lane_diff: the bounce where the two paths part, and how."""
     from pbrs_tpu_torch import lane_diff, render
-    from pbrs_tpu_torch.accel import fused_wave as fw
-    from pbrs_tpu_torch.core import sampler as smp
 
+    scene = scene.to(dev)
+    n = scene.camera.width * scene.camera.height
+    pix = torch.arange(n, dtype=torch.int32, device=dev)
+    name, _ = render.make_integrator(scene, sampler_of(rng), depth, MSAA,
+                                     "auto", nee_mode=nee_mode)
+    if not name.startswith("fused_wave"):
+        raise AssertionError(f"{label}: route auto did not take K4")
+    paths = lane_diff._Paths(scene, rng, nee_mode)
+    wave = paths.wave
+    perlin = lane_diff.perlin_materials(scene)
+    touched = torch.zeros(n, dtype=torch.bool, device=dev)
+    trace = wave.intersect_fn
+
+    def traced(rays):
+        hit = trace(rays)
+        touched.logical_or_(hit.hit & (rays.t_max > 0.0)
+                            & perlin[hit.mat_id.clamp_min(0).long()])
+        return hit
+
+    wave.intersect_fn = traced
+    rad_w, cnt_w = wave.render_samples(sampler_of(rng), pix, 0,
+                                       max_depth=depth, msaa=MSAA)
+    wave.intersect_fn = trace
+    _, general = render.make_integrator(scene, sampler_of(rng), depth, MSAA,
+                                        "general", nee_mode=nee_mode)
+    rad_g, cnt_g = general(pix, 0)
+
+    def outside(rtol):
+        return ~torch.isclose(rad_w, rad_g, atol=K4_ATOL,
+                              rtol=rtol).all(dim=1)
+
+    n_out = int(outside(K4_RTOL).sum())
+    n_marble = int((outside(K4_RTOL) & touched).sum())
+    marble = int(touched.sum())
+    rest = n - marble
+    loose = {r: int((outside(r) & touched).sum())
+             for r in (1e-3, MARBLE_RTOL, 1e-1)}
+    s_w, s_g = float(rad_w.sum()), float(rad_g.sum())
+    mode = f"{rng}, {nee_mode}"
+    print(f"phase {phase} wave vs general ({mode}), {label} ({n} lanes, "
+          f"depth {depth}, sample 0): lanes outside atol {K4_ATOL} rtol "
+          f"{K4_RTOL}: {n_out}, {n_marble} of them among the {marble} that "
+          f"reach a Perlin surface, {n_out - n_marble} of the other {rest}; "
+          f"Perlin lanes outside atol {K4_ATOL} and rtol "
+          + ", ".join(f"{r:g}: {c}" for r, c in loose.items())
+          + f"; max |d| {float((rad_w - rad_g).abs().max()):.3g}; "
+          f"checksum {s_w:.6e} vs {s_g:.6e}; rays {int(cnt_w)} vs "
+          f"{int(cnt_g)}")
+    lanes = lane_diff.classify(scene, pix[outside(K4_RTOL)], depth, MSAA,
+                               paths)
+    for how in sorted({ln["how"] for ln in lanes}):
+        print(f"phase {phase} {label} ({mode}), where the paths part: {how}: "
+              + lane_diff.summary([ln for ln in lanes if ln["how"] == how]))
+    rays_ok = (rng == "pcg" and nee_mode == "twoarm") or abs(
+        int(cnt_w) - int(cnt_g)) <= n_out * (3 * depth + 1)
+    if (n_out - n_marble > 1e-4 * rest
+            or loose[MARBLE_RTOL] > MARBLE_SHARE * marble
+            or abs(s_w - s_g) > GOLDEN_REL_TOL * abs(s_g)
+            or not np.isfinite(s_w) or not rays_ok):
+        raise AssertionError(f"{label}: the wave path disagrees with the "
+                             f"general path ({mode})")
+
+
+def phase_wave_vs_general(dev):
+    """Phase 17: the wave path against the general path per lane (PCG,
+    two-arm) on the interior 1024^2 depth 5, everything 800^2 depth 5 and
+    mesh_ball(levels=5) 800x600 depth 6 (see wave_vs_general)."""
     for label, scene, depth in (("interior", interior(SIZE, SIZE), 5),
                                 ("everything", mesh_scene("everything"),
                                  EVERY_DEPTH),
                                 ("mesh_ball", mesh_scene("mesh_ball"),
                                  MESH_DEPTH)):
+        wave_vs_general(dev, label, scene, depth)
+
+
+# --------- the Sobol' sampler, folded NEE and the direct integrator ---------
+
+
+def launch_counts():
+    from pbrs_tpu_torch.accel import fused_kernel as fk
+    from pbrs_tpu_torch.accel import fused_single_lobe as fsl
+    from pbrs_tpu_torch.accel import fused_wave as fw
+    from pbrs_tpu_torch.accel import trace_kernel as tk
+    from pbrs_tpu_torch.accel import treelet as tl
+
+    return {"trace_flat": tk, "fused_bounce": fk, "fused_single_lobe": fsl,
+            "trace_bvh": tl, "fused_wave": fw}
+
+
+def render_path(phase, label, scene, depth, smi, route="auto",
+                sampler="pcg", reps=REPS, msaa=MSAA, **kw):
+    """One path at full size: timed per sample as phases 5-15 time theirs
+    (run_main_path), every launch count set to 0 just before and read just
+    after; then once through render_image (msaa^2 spp), which must take
+    the same integrator to a finite, lit image. kw (integrator, nee_mode)
+    goes to both. Returns {name, launches, ms (a sample), segs (traced
+    segments a sample), checksum (of the first rep), image}."""
+    from pbrs_tpu_torch import render
+
+    n = scene.camera.width * scene.camera.height
+    pix = torch.arange(n, dtype=torch.int32, device=scene.device)
+    mods = launch_counts()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    name, mrays, wall, checksum, segs = run_main_path(
+        scene, route, pix, depth, reps, sampler, msaa, **kw)
+    launches = {k: m.LAUNCHES for k, m in mods.items() if m.LAUNCHES}
+    img, stats = render.render_image(scene, spp=msaa * msaa, max_depth=depth,
+                                     route=route, sampler_kind=sampler, **kw)
+    w, h = scene.camera.width, scene.camera.height
+    opts = ", ".join(f"{k}={v}" for k, v in
+                     {"route": route, "sampler": sampler, **kw}.items())
+    print(f"phase {phase} {label} {w}x{h} depth {depth} msaa {msaa} ({opts})"
+          f" -> {name}: median {mrays:.3f} Mrays/s, {wall * 1e3:.2f} "
+          f"ms/sample, {segs} traced segments a sample, checksum "
+          f"{checksum:.6e}; launches {launches}; render_image "
+          f"{stats.spp} spp -> {stats.integrator}, image mean "
+          f"{float(img.mean()):.6e} [{smi}]")
+    if (stats.integrator != name or not np.isfinite(img).all()
+            or float(img.mean()) <= 0):
+        raise AssertionError(f"{label}: render_image did not take {name} to "
+                             "a finite, lit image")
+    return {"name": name, "launches": launches, "ms": wall * 1e3,
+            "segs": segs, "checksum": checksum, "image": img}
+
+
+def fused_vs_general(dev, label, scene, depth, atol, rtol, phase):
+    """Route auto's fused kernel against the general path per lane, sample
+    0, at full width, drawing Sobol' and (its twin) PCG. The two
+    implementations round apart on a few lanes whatever the sampler (on
+    plates ~0.02% at atol 3e-5 rtol 2e-4, each side matching pbrs_tpu's on
+    some: ROADMAP Queue 3), so the Sobol' run is held to its PCG twin: at
+    most max(2 x the PCG count, 0.01%) lanes outside atol / rtol, at most
+    0.01% outside atol / rtol 1e-2, checksums within GOLDEN_REL_TOL."""
+    from pbrs_tpu_torch import render
+
+    n = scene.camera.width * scene.camera.height
+    pix = torch.arange(n, dtype=torch.int32, device=dev)
+    got = {}
+    for rng in ("pcg", "sobol"):
+        out = {}
+        for route in ("auto", "general"):
+            name, fn = render.make_integrator(scene, sampler_of(rng), depth,
+                                              MSAA, route)
+            out[route] = (name,) + tuple(fn(pix, 0))
+        (name, rad_f, cnt_f), (_, rad_g, cnt_g) = out["auto"], out["general"]
+
+        def outside(r):
+            return int((~torch.isclose(rad_f, rad_g, atol=atol, rtol=r)
+                        .all(1)).sum())
+
+        s_f, s_g = float(rad_f.sum()), float(rad_g.sum())
+        got[rng] = (outside(rtol), outside(1e-2), s_f, s_g)
+        print(f"phase {phase} {name} vs general ({rng}), {label} ({n} lanes, "
+              f"depth {depth}, sample 0): lanes outside atol {atol} rtol "
+              f"{rtol}: {got[rng][0]}, rtol 1e-2: {got[rng][1]}; max |d| "
+              f"{float((rad_f - rad_g).abs().max()):.3g}; checksum "
+              f"{s_f:.6e} vs {s_g:.6e}; rays {int(cnt_f)} vs {int(cnt_g)}")
+    bad, loose, s_f, s_g = got["sobol"]
+    if (bad > max(2 * got["pcg"][0], 1e-4 * n) or loose > 1e-4 * n
+            or abs(s_f - s_g) > GOLDEN_REL_TOL * abs(s_g)
+            or not np.isfinite(s_f)):
+        raise AssertionError(f"{label}: {name} disagrees with the general "
+                             f"path under Sobol'")
+    return name
+
+
+def phase_sobol_main(dev, smi):
+    """Phase 18, the Sobol' sampler on the three fused paths at their
+    benchmark sizes: Cornell 1024^2 depth 8 through K2, plates 1024^2
+    depth 5 through K3 and the interior 1024^2 depth 5 through K4, each
+    through render_image on route auto and route general (the general
+    path on the same Sobol' streams), then the fused route against the
+    general route per lane. Returns the launches of the fused runs and
+    every launch of the interior's sample 0 for phase 21."""
+    runs = (("Cornell", cornell(SIZE), DEPTH, "fused", "fused_bounce",
+             (ATOL, RTOL)),
+            ("plates", preset_at("plates", SIZE), PLATES_DEPTH,
+             "fused_single_lobe", "fused_single_lobe", (K3_ATOL, K3_RTOL)),
+            ("interior", interior(SIZE, SIZE), 5, "fused_wave", "fused_wave",
+             None))
+    launches = {}
+    for label, scene, depth, want, kernel, tol in runs:
         scene = scene.to(dev)
-        n = scene.camera.width * scene.camera.height
-        pix = torch.arange(n, dtype=torch.int32, device=dev)
-        name, _ = render.make_integrator(scene, smp.PCGSampler(0), depth,
-                                         MSAA, "auto")
-        if name != "fused_wave":
-            raise AssertionError(f"{label}: route auto did not take K4")
-        wave = fw.FusedWaveIntegrator(scene)
-        perlin = lane_diff.perlin_materials(scene)
-        touched = torch.zeros(n, dtype=torch.bool, device=dev)
-        trace = wave.intersect_fn
+        fused = render_path(18, label, scene, depth, smi, sampler="sobol")
+        general = render_path(18, label, scene, depth, smi, route="general",
+                              sampler="sobol", reps=1)
+        got = fused["launches"]
+        if fused["name"] != want or not got.get(kernel):
+            raise AssertionError(f"{label}: the Sobol' path did not take "
+                                 f"{want}: {fused['name']}, {got}")
+        launches[kernel] = got[kernel]
+        a, b = fused["checksum"], general["checksum"]
+        print(f"phase 18 {label} Sobol' checksums: {want} {a:.6e}, general "
+              f"{b:.6e} (rel {abs(a - b) / abs(b):.2e})")
+        if abs(a - b) > GOLDEN_REL_TOL * abs(b):
+            raise AssertionError(f"{label}: Sobol' routes disagree")
+        if tol:
+            fused_vs_general(dev, label, scene, depth, *tol, 18)
+        else:
+            wave_vs_general(dev, label, scene, depth, "sobol", phase=18)
+    seen = main_path_launches(dev, interior(SIZE, SIZE).to(dev), 5, "sobol")
+    return launches, seen
 
-        def traced(rays):
-            hit = trace(rays)
-            touched.logical_or_(hit.hit & (rays.t_max > 0.0)
-                                & perlin[hit.mat_id.clamp_min(0).long()])
-            return hit
 
-        wave.intersect_fn = traced
-        rad_w, cnt_w = wave.render_samples(smp.PCGSampler(0), pix, 0,
-                                           max_depth=depth, msaa=MSAA)
-        _, general = render.make_integrator(scene, smp.PCGSampler(0), depth,
-                                            MSAA, "general")
-        rad_g, cnt_g = general(pix, 0)
+def phase_folded_main(dev, smi):
+    """Phase 22, folded NEE: the interior 1024^2 depth 5 through K4 folded
+    (route auto) and the folded general path, mesh_ball(levels=5) 800x600
+    depth 6 through the folded general path (benchmarks.json's tuned
+    route for it) and K4 folded, each through render_image beside its
+    two-arm twin on the same call; then wave-folded against
+    general-folded per lane on both. Returns the K4 folded launches and
+    every launch of the interior's folded sample 0 for phase 23."""
+    launches = 0
+    for label, scene, depth in (("interior", interior(SIZE, SIZE), 5),
+                                ("mesh_ball", mesh_scene("mesh_ball"),
+                                 MESH_DEPTH)):
+        scene = scene.to(dev)
+        rows = {}
+        for key, kw in (("auto", {}),
+                        ("general", {"route": "general", "reps": 1}),
+                        ("auto folded", {"nee_mode": "folded"}),
+                        ("general folded", {"nee_mode": "folded",
+                                            "route": "general", "reps": 1})):
+            rows[key] = render_path(22, label, scene, depth, smi, **kw)
+        got = rows["auto folded"]["launches"]
+        if (rows["auto folded"]["name"] != "fused_wave_folded"
+                or not got.get("fused_wave")):
+            raise AssertionError(f"{label}: folded route auto did not take K4 "
+                                 f"folded: {rows['auto folded']['name']}, "
+                                 f"{got}")
+        if rows["general folded"]["name"] != "general_folded":
+            raise AssertionError(f"{label}: no folded general path")
+        launches += got["fused_wave"]
+        for a, b in (("auto folded", "auto"),
+                     ("general folded", "general")):
+            ra, rb = rows[a], rows[b]
+            print(f"phase 22 {label} {a} vs two-arm: {ra['ms']:.2f} vs "
+                  f"{rb['ms']:.2f} ms/sample, {ra['segs']} vs {rb['segs']} "
+                  f"traced segments a sample, checksum "
+                  f"{ra['checksum']:.6e} vs {rb['checksum']:.6e}")
+        a, b = (rows[k]["checksum"] for k in ("auto folded", "general folded"))
+        if abs(a - b) > GOLDEN_REL_TOL * abs(b):
+            raise AssertionError(f"{label}: folded routes disagree")
+        wave_vs_general(dev, label, scene, depth, "pcg", "folded", phase=22)
+    seen = main_path_launches(dev, interior(SIZE, SIZE).to(dev), 5,
+                              nee_mode="folded")
+    return launches, seen
 
-        def outside(rtol):
-            return ~torch.isclose(rad_w, rad_g, atol=K4_ATOL,
-                                  rtol=rtol).all(dim=1)
 
-        n_out = int(outside(K4_RTOL).sum())
-        n_marble = int((outside(K4_RTOL) & touched).sum())
-        marble = int(touched.sum())
-        rest = n - marble
-        loose = {r: int((outside(r) & touched).sum())
-                 for r in (1e-3, MARBLE_RTOL, 1e-1)}
-        s_w, s_g = float(rad_w.sum()), float(rad_g.sum())
-        print(f"phase 17 wave vs general, {label} ({n} lanes, depth {depth},"
-              f" sample 0): lanes outside atol {K4_ATOL} rtol {K4_RTOL}: "
-              f"{n_out}, {n_marble} of them among the {marble} that reach a "
-              f"Perlin surface, {n_out - n_marble} of the other {rest}; "
-              f"Perlin lanes outside atol {K4_ATOL} and rtol "
-              + ", ".join(f"{r:g}: {c}" for r, c in loose.items())
-              + f"; max |d| {float((rad_w - rad_g).abs().max()):.3g}; "
-              f"checksum {s_w:.6e} vs {s_g:.6e}; rays {int(cnt_w)} vs "
-              f"{int(cnt_g)}")
-        lanes = lane_diff.classify(scene, pix[outside(K4_RTOL)], depth, MSAA)
-        for how in sorted({ln["how"] for ln in lanes}):
-            print(f"phase 17 {label}, where the paths part: {how}: "
-                  + lane_diff.summary([ln for ln in lanes
-                                       if ln["how"] == how]))
-        if (n_out - n_marble > 1e-4 * rest
-                or loose[MARBLE_RTOL] > MARBLE_SHARE * marble
-                or abs(s_w - s_g) > GOLDEN_REL_TOL * abs(s_g)
-                or not np.isfinite(s_w)):
-            raise AssertionError(f"{label}: the wave path disagrees with the "
-                                 "general path")
+def phase_direct(dev, smi):
+    """Phase 24, benchmarks.json cornell_direct_256_16spp: Cornell 256^2,
+    depth 2, 16 spp, the direct integrator through render_image (K1
+    traces) against its plain route per pixel; then the normal and
+    material visualizers."""
+    from pbrs_tpu_torch import render
+
+    scene = preset_at("cornell_box", 256).to(dev)
+    row = render_path(24, "cornell_direct", scene, 2, smi, msaa=4,
+                      integrator="direct")
+    name, got, img = row["name"], row["launches"], row["image"]
+    plain, _ = render.render_image(scene, spp=16, max_depth=2,
+                                   integrator="direct", route="plain")
+    n = img.shape[0] * img.shape[1]
+    bad = int((~np.isclose(img, plain, atol=ATOL, rtol=RTOL).all(-1)).sum())
+    print(f"phase 24 direct via K1 vs the plain route: pixels outside atol "
+          f"{ATOL} rtol {RTOL}: {bad} of {n}; max |d| "
+          f"{float(np.abs(img - plain).max()):.3g}")
+    if name != "direct" or not got.get("trace_flat") or bad > 1e-4 * n:
+        raise AssertionError("the direct integrator did not go through K1 "
+                             "to the plain route's image")
+    for kind in ("normals", "materials"):
+        vis, stats = render.render_image(scene, spp=1, integrator=kind)
+        print(f"phase 24 {kind} visualizer: mean {float(vis.mean()):.5f}, "
+              f"{stats.traced_rays} traced")
+        if not np.isfinite(vis).all() or float(vis.mean()) <= 0:
+            raise AssertionError(f"the {kind} visualizer is not a finite "
+                                 "image")
 
 
 def kernel_entry(name, source, replaces, launches, report):
@@ -1494,42 +1789,66 @@ def main():
         return 1
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
-    name, smi = phase_device()
-    phase_build()
-    k1 = phase_trace(dev, rng)
-    k2 = phase_bounce(dev)
-    phase_golden(dev)
-    launches = phase_main(dev, smi)
-    phase_cli()
-    k3 = phase_single_lobe(dev)
-    phase_single_lobe_golden(dev)
-    k3_launches = phase_plates_main(dev, smi)
-    k5 = phase_bvh(dev, rng, k1)
-    phase_bvh_golden(dev)
-    k5_launches = phase_mesh_main(dev, smi)
-    k4_launches, seen = phase_interior_main(dev, smi)
-    k4 = phase_wave(dev, seen)
-    phase_interior_traces(seen, k1, k5)
+    t0 = time.time()
+
+    def run(fn, *args, **kw):
+        """fn(*args, **kw), then the seconds since the start."""
+        out = fn(*args, **kw)
+        print(f"[{fn.__name__} done at {time.time() - t0:.1f} s]")
+        return out
+
+    name, smi = run(phase_device)
+    run(phase_build)
+    k1 = run(phase_trace, dev, rng)
+    k2 = run(phase_bounce, dev)
+    run(phase_golden, dev)
+    launches = run(phase_main, dev, smi)
+    run(phase_cli)
+    k3 = run(phase_single_lobe, dev)
+    run(phase_single_lobe_golden, dev)
+    k3_launches = run(phase_plates_main, dev, smi)
+    k5 = run(phase_bvh, dev, rng, k1)
+    run(phase_bvh_golden, dev)
+    k5_launches = run(phase_mesh_main, dev, smi)
+    k4_launches, seen = run(phase_interior_main, dev, smi)
+    k4 = run(phase_wave, dev, seen)
+    run(phase_interior_traces, seen, k1, k5)
     del seen
-    phase_wave_golden(dev)
-    phase_interior_1080(dev, smi)
-    phase_wave_vs_general(dev)
+    run(phase_wave_golden, dev)
+    run(phase_interior_1080, dev, smi)
+    run(phase_wave_vs_general, dev)
+    sobol_launches, seen = run(phase_sobol_main, dev, smi)
+    k2_sobol = run(phase_bounce, dev, "sobol", phase=19)
+    k3_sobol = run(phase_single_lobe, dev, "sobol", phase=20)
+    k4_sobol = run(phase_wave, dev, seen, "sobol", phase=21)
+    folded_launches, seen = run(phase_folded_main, dev, smi)
+    k4_folded = run(phase_wave, dev, seen, nee_mode="folded", phase=23)
+    del seen
+    run(phase_direct, dev, smi)
+    k2_src = "pbrs_tpu/accel/fused_kernel.py:329"
+    k3_src = "pbrs_tpu/accel/fused_single_lobe.py:506"
+    k4_src = "pbrs_tpu/accel/fused_wave.py:158"
     kernels = [
         kernel_entry("trace_flat", "trace_flat.cu",
                      "pbrs_tpu/accel/trace_pallas.py:127",
                      launches["trace_flat"], k1),
-        kernel_entry("fused_bounce", "fused_bounce.cu",
-                     "pbrs_tpu/accel/fused_kernel.py:329",
+        kernel_entry("fused_bounce", "fused_bounce.cu", k2_src,
                      launches["fused_bounce"], k2),
-        kernel_entry("fused_single_lobe", "fused_single_lobe.cu",
-                     "pbrs_tpu/accel/fused_single_lobe.py:506",
+        kernel_entry("fused_single_lobe", "fused_single_lobe.cu", k3_src,
                      k3_launches["fused_single_lobe"], k3),
         kernel_entry("trace_bvh", "trace_bvh.cu",
                      "pbrs_tpu/accel/treelet.py:310 and :479",
                      k5_launches["trace_bvh"], k5),
-        kernel_entry("fused_wave", "fused_wave.cu",
-                     "pbrs_tpu/accel/fused_wave.py:158",
+        kernel_entry("fused_wave", "fused_wave.cu", k4_src,
                      k4_launches["fused_wave"], k4),
+        kernel_entry("fused_bounce_sobol", "fused_bounce.cu", k2_src,
+                     sobol_launches["fused_bounce"], k2_sobol),
+        kernel_entry("fused_single_lobe_sobol", "fused_single_lobe.cu",
+                     k3_src, sobol_launches["fused_single_lobe"], k3_sobol),
+        kernel_entry("fused_wave_sobol", "fused_wave.cu", k4_src,
+                     sobol_launches["fused_wave"], k4_sobol),
+        kernel_entry("fused_wave_folded", "fused_wave.cu", k4_src,
+                     folded_launches, k4_folded),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

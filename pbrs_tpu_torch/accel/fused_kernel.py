@@ -10,8 +10,9 @@ BSDF sampling, Russian roulette and the next-ray spawn. The CUDA kernel
 is the same bounce as a tensor program, op for op. ``bounce`` takes the
 kernel for CUDA tensors and the plain version for CPU tensors.
 
-The sampler stream is PCG, drawn in-kernel bit-identically to
-``core.sampler.PCGSampler``; a Sobol' sampler is not ported yet.
+The sampler stream is PCG or Owen-scrambled Sobol', drawn in-kernel
+bit-identically to ``core.sampler.PCGSampler`` / ``SobolSampler``
+(``_u1``); a threefry sampler takes the general wavefront.
 """
 
 from __future__ import annotations
@@ -73,13 +74,31 @@ def scene_supports_fused(scene) -> bool:
     return True
 
 
+# The kernels' `rng` launch argument.
+RNG_CODES = {"pcg": 0, "sobol": 1}
+
+
 def rng_kind(sampler) -> str:
-    """The in-kernel stream for a sampler; only PCG is ported."""
+    """The in-kernel stream for a sampler: "pcg" or "sobol"."""
+    if isinstance(sampler, smp.SobolSampler):
+        return "sobol"
     if isinstance(sampler, smp.PCGSampler):
         return "pcg"
     raise TypeError(
-        f"the fused kernel reproduces the PCG stream in-kernel; "
+        f"the fused kernels reproduce the PCG / Sobol' streams in-kernel; "
         f"{type(sampler).__name__} must use the general wavefront")
+
+
+def _u1(seed, pix, samp, bounce, dim, lane=0, rng="pcg"):
+    """The in-kernel uniform draw. rng "pcg" is PCGSampler.u1(..., lane);
+    rng "sobol" keys both Sobol' hashes with lane 0 and takes Sobol'
+    dimension `lane`: lane 0 is SobolSampler.u1 and u2's first component,
+    lane 1 u2's second."""
+    if rng == "pcg":
+        bits = smp.hash_u32(seed, pix, samp, bounce * 16 + dim, lane)
+    else:
+        bits = smp.sobol_bits(seed, pix, samp, bounce, dim, 0, lane)
+    return smp.uniform_from_u32(bits)
 
 
 @dataclass
@@ -157,7 +176,7 @@ def _occluded(tab, ox, oy, oz, dx, dy, dz, t_max):
 
 
 def bounce_reference(tab: FusedTables, fin, alive_in, pix, samp, *, seed,
-                     bounce, bounce_is_first, rr_active):
+                     bounce, bounce_is_first, rr_active, rng="pcg"):
     """Plain version of K2: one bounce over N lanes.
 
     fin [9,N] float32: origin xyz, dir xyz, beta rgb; alive_in, pix, samp
@@ -173,8 +192,7 @@ def bounce_reference(tab: FusedTables, fin, alive_in, pix, samp, *, seed,
     smpu = samp.to(torch.int64) & smp.MASK32
 
     def u1(dim, lane=0):
-        return smp.uniform_from_u32(smp.hash_u32(
-            seed, pixu, smpu, bounce * 16 + dim, lane))
+        return _u1(seed, pixu, smpu, bounce, dim, lane, rng)
 
     zero = torch.zeros_like(rox)
     n_rays = live.sum()
@@ -440,7 +458,7 @@ def _check_lanes(tab, fin, alive, pix, samp, count):
 
 
 def bounce(tab: FusedTables, fin, alive, pix, samp, count, *, seed, bounce,
-           bounce_is_first, rr_active):
+           bounce_is_first, rr_active, rng="pcg"):
     """One bounce: returns (fout [12,N], alive_out [N] int32) and adds the
     bounce's traced-ray count to `count` (int64 [1]). CUDA tensors launch
     K2, CPU tensors take bounce_reference."""
@@ -449,7 +467,7 @@ def bounce(tab: FusedTables, fin, alive, pix, samp, count, *, seed, bounce,
     if kind == "cpu":
         fout, alive_out, n_rays = bounce_reference(
             tab, fin, alive, pix, samp, seed=seed, bounce=bounce,
-            bounce_is_first=bounce_is_first, rr_active=rr_active)
+            bounce_is_first=bounce_is_first, rr_active=rr_active, rng=rng)
         count += n_rays
         return fout, alive_out
     if kind != "cuda":
@@ -469,9 +487,9 @@ def bounce(tab: FusedTables, fin, alive, pix, samp, count, *, seed, bounce,
     rc = kernels.lib().pbrs_fused_bounce(
         tab.bank.data_ptr(), *tab.counts, tab.mats.data_ptr(),
         tab.mats.shape[0], tab.lights.data_ptr(), tab.n_area,
-        tab.env.data_ptr(), tab.env_kind, seed_c, int(bounce),
-        int(bool(bounce_is_first)), int(bool(rr_active)), fin.data_ptr(),
-        alive.data_ptr(), pix.data_ptr(), samp.data_ptr(), n,
+        tab.env.data_ptr(), tab.env_kind, RNG_CODES[rng], seed_c,
+        int(bounce), int(bool(bounce_is_first)), int(bool(rr_active)),
+        fin.data_ptr(), alive.data_ptr(), pix.data_ptr(), samp.data_ptr(), n,
         fout.data_ptr(), alive_out.data_ptr(), count.data_ptr(), stream)
     kernels.check(rc, "fused_bounce")
     LAUNCHES += 1
@@ -490,7 +508,7 @@ class FusedDiffuseIntegrator:
     def render_samples(self, sampler, pixel_idx, sample_idx, max_depth=5,
                        msaa=2, rr_start=3):
         """(radiance [N,3], traced-ray count) for a (pixel, sample) batch."""
-        rng_kind(sampler)
+        rng = rng_kind(sampler)
         rays = wavefront.camera_rays(self.scene, sampler, pixel_idx,
                                      sample_idx, msaa)
         n = rays.n
@@ -506,7 +524,8 @@ class FusedDiffuseIntegrator:
         for b in range(max_depth):
             fout, alive = bounce(
                 self.tables, fin, alive, pix, samp, count, seed=sampler.seed,
-                bounce=b, bounce_is_first=(b == 0), rr_active=(b > rr_start))
+                bounce=b, bounce_is_first=(b == 0), rr_active=(b > rr_start),
+                rng=rng)
             radiance = radiance + fout[0:3]
             fin = fout[3:]  # next origin, dir, beta: a contiguous view
         return radiance.T, count[0]

@@ -1,6 +1,6 @@
 """Fused per-bounce megakernel for single-lobe material/light scenes
 (kernel K3). Mirrors pbrs_tpu/accel/fused_single_lobe.py:
-``scene_supports_single_lobe``, ``_bounce2_kernel`` (PCG mode) and
+``scene_supports_single_lobe``, ``_bounce2_kernel`` (PCG and Sobol') and
 ``FusedSingleLobeIntegrator``.
 
 One launch runs a whole wavefront bounce for every single-lobe material
@@ -1016,7 +1016,8 @@ class _AreaLight:
 
 
 def bounce2_reference(tab: SingleLobeTables, fin, alive_in, spec_in, pix,
-                      samp, *, seed, bounce, bounce_is_first, rr_active):
+                      samp, *, seed, bounce, bounce_is_first, rr_active,
+                      rng="pcg"):
     """Plain version of K3: one bounce over N lanes.
 
     fin [9,N] float32: origin xyz, dir xyz, beta rgb; alive_in, spec_in
@@ -1035,8 +1036,7 @@ def bounce2_reference(tab: SingleLobeTables, fin, alive_in, spec_in, pix,
     smpu = samp.to(torch.int64) & smp.MASK32
 
     def u1(dim, lane=0):
-        return smp.uniform_from_u32(smp.hash_u32(
-            seed, pixu, smpu, bounce * 16 + dim, lane))
+        return fk._u1(seed, pixu, smpu, bounce, dim, lane, rng)
 
     zero = torch.zeros_like(ox)
     n_rays = live.sum()
@@ -1284,7 +1284,7 @@ def _check_lanes(tab, fin, ints, count):
 
 
 def bounce2(tab: SingleLobeTables, fin, alive, spec, pix, samp, count, *,
-            seed, bounce, bounce_is_first, rr_active):
+            seed, bounce, bounce_is_first, rr_active, rng="pcg"):
     """One bounce: returns (fout [12,N], alive_out [N], spec_out [N]) and
     adds the bounce's traced-ray count to `count` (int64 [1]). CUDA tensors
     launch K3, CPU tensors take bounce2_reference."""
@@ -1293,7 +1293,7 @@ def bounce2(tab: SingleLobeTables, fin, alive, spec, pix, samp, count, *,
     if kind == "cpu":
         fout, alive_out, spec_out, n_rays = bounce2_reference(
             tab, fin, alive, spec, pix, samp, seed=seed, bounce=bounce,
-            bounce_is_first=bounce_is_first, rr_active=rr_active)
+            bounce_is_first=bounce_is_first, rr_active=rr_active, rng=rng)
         count += n_rays
         return fout, alive_out, spec_out
     if kind != "cuda":
@@ -1319,7 +1319,7 @@ def bounce2(tab: SingleLobeTables, fin, alive, spec, pix, samp, count, *,
         tab.texs.data_ptr(), tab.n_texs, _mask(tab.tex_kinds),
         tab.lights.data_ptr(), tab.n_area, tab.delta.data_ptr(),
         tab.n_delta, tab.env.data_ptr(), tab.env_kind, int(tab.two_slots),
-        seed_c, int(bounce), int(bool(bounce_is_first)), int(bool(rr_active)),
+        fk.RNG_CODES[rng], seed_c, int(bounce), int(bool(bounce_is_first)), int(bool(rr_active)),
         fin.data_ptr(), alive.data_ptr(), spec.data_ptr(), pix.data_ptr(),
         samp.data_ptr(), n, fout.data_ptr(), alive_out.data_ptr(),
         spec_out.data_ptr(), count.data_ptr(), stream)
@@ -1340,7 +1340,7 @@ class FusedSingleLobeIntegrator:
     def render_samples(self, sampler, pixel_idx, sample_idx, max_depth=5,
                        msaa=2, rr_start=3):
         """(radiance [N,3], traced-ray count) for a (pixel, sample) batch."""
-        fk.rng_kind(sampler)
+        rng = fk.rng_kind(sampler)
         rays = wavefront.camera_rays(self.scene, sampler, pixel_idx,
                                      sample_idx, msaa)
         n = rays.n
@@ -1358,7 +1358,7 @@ class FusedSingleLobeIntegrator:
             fout, alive, spec = bounce2(
                 self.tables, fin, alive, spec, pix, samp, count,
                 seed=sampler.seed, bounce=b, bounce_is_first=(b == 0),
-                rr_active=(b > rr_start))
+                rr_active=(b > rr_start), rng=rng)
             radiance = radiance + fout[0:3]
             fin = fout[3:]  # next origin, dir, beta: a contiguous view
         return radiance.T, count[0]

@@ -1,6 +1,7 @@
 """The shade-only bounce with the trace outside it (kernel K4). Mirrors
-pbrs_tpu/accel/fused_wave.py: ``scene_supports_wave``, ``_shade_kernel``
-(two-arm NEE, PCG) and ``FusedWaveIntegrator.render_samples``.
+pbrs_tpu/accel/fused_wave.py: ``scene_supports_wave`` /
+``scene_supports_wave_folded``, ``_shade_kernel`` (two-arm or folded NEE,
+PCG or Sobol' draws) and ``FusedWaveIntegrator.render_samples``.
 
 A bounce traces its closest hit through the scene's tracer (K1 / K5 /
 instance groups, accel/dispatch.py), evaluates the hit detail, the image /
@@ -11,7 +12,9 @@ mixtures over the eight kinds, emission on camera and post-delta segments,
 the BSDF sample, NEE over one light among delta + area + env with both MIS
 arms, and Russian roulette. K4 emits two shadow queries with their pending
 contributions instead of tracing them; one occlusion launch over both
-batches and the apply step finish the bounce.
+batches and the apply step finish the bounce. Folded, the BSDF arm shares
+the continuation sample: K4 emits one shadow query and a pending
+contribution that the next bounce's closest hit resolves.
 
 ``shade_reference`` is K4 as a tensor program; ``shade`` launches the CUDA
 kernel (``csrc/fused_wave.cu``) for CUDA tensors and takes the plain
@@ -25,8 +28,8 @@ lanes through (zeros, the incoming direction and beta). Both versions here
 keep that rule over groups of GROUP lanes, so every output plane equals the
 TPU kernel's on every lane.
 
-Left out, each refused with an error and queued in ROADMAP.md: folded NEE,
-``render_samples_compacted``, the Fourier override and the Sobol draw.
+Left out, each refused or declined and queued in ROADMAP.md:
+``render_samples_compacted`` and the Fourier override.
 """
 
 from __future__ import annotations
@@ -98,6 +101,13 @@ def scene_supports_wave(scene) -> bool:
                                           alpha[rows, s, 1]):
             return False
     return km.shape[0] <= MAX_MATS and scene.delta_lights.count <= MAX_DELTA
+
+
+def scene_supports_wave_folded(scene) -> bool:
+    """Folded eligibility: wave-eligible and no FOURIER lobe (the JAX
+    package's Fourier override is two-arm only)."""
+    return scene_supports_wave(scene) and lb.FOURIER not in set(
+        _np(scene.materials.kind).reshape(-1).tolist())
 
 
 @dataclass
@@ -198,14 +208,19 @@ def group_flags(alive):
 
 
 def shade_reference(tab: WaveTables, fin, iin, *, seed, bounce, first,
-                    rr_on):
+                    rr_on, rng="pcg", folded=False):
     """Plain version of K4 over N lanes.
 
     fin [tab.n_in, N] float32 (see N_BASE), iin [6, N] int32 (mat_id, hit,
     alive, spec, pixel, sample). Returns (fout [30, N] float32, iout [2, N]
     int32: alive, spec) in the TPU kernel's plane order, and the bounce's
     shadow-ray count (an int64 scalar: 2 per lane alive after its hit when
-    the scene has lights)."""
+    the scene has lights, 1 when folded).
+
+    folded: the path's own continuation sample is the NEE BSDF arm's
+    sample; no second shadow query is written (s2 direction and side stay
+    0) and s2t carries the distance to the chosen area light along the
+    continuation ray where an area pending is owed."""
     rdx, rdy, rdz, px, py, pz, nx, ny, nz, tx, ty, tz = fin[:12]
     env_in = fin[12:15]
     n_tex = 3 * len(tab.textured_slots)
@@ -222,8 +237,7 @@ def shade_reference(tab: WaveTables, fin, iin, *, seed, bounce, first,
     smpu = samp.to(torch.int64) & smp.MASK32
 
     def u1(dim, lane=0):
-        return smp.uniform_from_u32(smp.hash_u32(
-            seed, pixu, smpu, bounce * 16 + dim, lane))
+        return fk._u1(seed, pixu, smpu, bounce, dim, lane, rng)
 
     zero = torch.zeros_like(rdx)
 
@@ -300,7 +314,8 @@ def shade_reference(tab: WaveTables, fin, iin, *, seed, bounce, first,
     rad = [torch.where(count_emit, b * torch.where(hit, e, v), 0.0)
            for b, e, v in zip(beta, emi, env_in)]
     alive = alive & hit
-    n_shadow = 2 * alive.sum() if tab.n_lights > 0 else zero.sum().long()
+    n_shadow = ((1 if folded else 2) * alive.sum() if tab.n_lights > 0
+                else zero.sum().long())
 
     # ---- BSDF sample for the next direction ----
     (bf_r, bf_g, bf_b, b_wlx, b_wly, b_wlz, b_pdf, b_delta) = sample_mix(
@@ -313,8 +328,6 @@ def shade_reference(tab: WaveTables, fin, iin, *, seed, bounce, first,
         u_sel = u1(smp.DIM_LIGHT_SELECT)
         u_l0 = u1(smp.DIM_LIGHT_UV, 0)
         u_l1 = u1(smp.DIM_LIGHT_UV, 1)
-        u_s0 = u1(smp.DIM_SCATTER_UV, 0)
-        u_s1 = u1(smp.DIM_SCATTER_UV, 1)
         chosen = torch.clamp_max((u_sel * n_lights).to(torch.int32),
                                  n_lights - 1)
         arm_delta = chosen < n_delta
@@ -406,9 +419,17 @@ def shade_reference(tab: WaveTables, fin, iin, *, seed, bounce, first,
 
         # -------- BSDF-sampled arm (area MIS + env) --------
         if n_area > 0 or tab.has_env:
-            (sf_r, sf_g, sf_b, s_wlx, s_wly, s_wlz, s_pdf,
-             s_delta) = sample_mix(u_s0, u_s1)
-            w2 = to_world(s_wlx, s_wly, s_wlz)
+            if folded:
+                # The continuation sample is the arm's; the next bounce's
+                # closest hit resolves its visibility.
+                sf_r, sf_g, sf_b, s_pdf, s_delta = (bf_r, bf_g, bf_b, b_pdf,
+                                                    b_delta)
+                w2 = (wnx, wny, wnz)
+            else:
+                (sf_r, sf_g, sf_b, s_wlx, s_wly, s_wlz, s_pdf,
+                 s_delta) = sample_mix(u1(smp.DIM_SCATTER_UV, 0),
+                                       u1(smp.DIM_SCATTER_UV, 1))
+                w2 = to_world(s_wlx, s_wly, s_wlz)
             cos2a = torch.abs(w2[0] * nx + w2[1] * ny + w2[2] * nz)
             f2 = (sf_r * cos2a, sf_g * cos2a, sf_b * cos2a)
             if n_area > 0:
@@ -416,9 +437,6 @@ def shade_reference(tab: WaveTables, fin, iin, *, seed, bounce, first,
             else:
                 hit_l = torch.zeros_like(hit)
                 t_hit = pdf_l2 = zero
-            dir2 = [torch.where(arm_env, w, t_hit * w) for w in w2]
-            side2 = torch.where(
-                dir2[0] * nx + dir2[1] * ny + dir2[2] * nz >= 0.0, 1.0, -1.0)
             f_any = (f2[0] > 0.0) | (f2[1] > 0.0) | (f2[2] > 0.0)
             valid_b = torch.zeros_like(hit)
             if n_area > 0:
@@ -443,9 +461,15 @@ def shade_reference(tab: WaveTables, fin, iin, *, seed, bounce, first,
                     out["ec" + ch] = torch.where(alive, b * f * ce_ * n_lights,
                                                  0.0)
                 out["spdf"] = torch.where(valid_e, s_pdf, 0.0)
-            out.update(s2d0=dir2[0], s2d1=dir2[1], s2d2=dir2[2],
-                       s2t=torch.where(valid_e, INF, torch.where(
-                           valid_b, SHADOW_T, 0.0)), s2side=side2)
+            if folded:
+                out["s2t"] = torch.where(valid_b, t_hit, 0.0)
+            else:
+                dir2 = [torch.where(arm_env, w, t_hit * w) for w in w2]
+                side2 = torch.where(dir2[0] * nx + dir2[1] * ny
+                                    + dir2[2] * nz >= 0.0, 1.0, -1.0)
+                out.update(s2d0=dir2[0], s2d1=dir2[1], s2d2=dir2[2],
+                           s2t=torch.where(valid_e, INF, torch.where(
+                               valid_b, SHADOW_T, 0.0)), s2side=side2)
 
     # ---- continuation: throughput update, Russian roulette ----
     cosn = torch.abs(wnx * nx + wny * ny + wnz * nz)
@@ -504,7 +528,8 @@ def _tex_slot_mask(tab):
     return sum(1 << s for s in tab.textured_slots)
 
 
-def shade(tab: WaveTables, fin, iin, count, *, seed, bounce, first, rr_on):
+def shade(tab: WaveTables, fin, iin, count, *, seed, bounce, first, rr_on,
+          rng="pcg", folded=False):
     """One shade pass: returns (fout [30, N], iout [2, N]) and adds the
     bounce's shadow-ray count to `count` (int64 [1]). CUDA tensors launch
     K4, CPU tensors take shade_reference."""
@@ -512,7 +537,8 @@ def shade(tab: WaveTables, fin, iin, count, *, seed, bounce, first, rr_on):
     kind = fin.device.type
     if kind == "cpu":
         fout, iout, n_shadow = shade_reference(
-            tab, fin, iin, seed=seed, bounce=bounce, first=first, rr_on=rr_on)
+            tab, fin, iin, seed=seed, bounce=bounce, first=first, rr_on=rr_on,
+            rng=rng, folded=folded)
         count += n_shadow
         return fout, iout
     if kind != "cuda":
@@ -531,41 +557,75 @@ def shade(tab: WaveTables, fin, iin, count, *, seed, bounce, first, rr_on):
         tab.mats.data_ptr(), tab.mats.shape[0], tab.mats.shape[1],
         tab.n_slots, tab.lights.data_ptr(), tab.n_area,
         tab.delta.data_ptr(), tab.n_delta, tab.world_radius,
-        int(tab.has_env), int(tab.env_is), _tex_slot_mask(tab), seed_c,
-        int(bounce), int(bool(first)), int(bool(rr_on)), fin.data_ptr(),
-        fin.shape[0], iin.data_ptr(), live.data_ptr(), n, fout.data_ptr(),
-        iout.data_ptr(), count.data_ptr(), stream)
+        int(tab.has_env), int(tab.env_is), _tex_slot_mask(tab),
+        fk.RNG_CODES[rng], int(bool(folded)), seed_c, int(bounce),
+        int(bool(first)), int(bool(rr_on)), fin.data_ptr(), fin.shape[0],
+        iin.data_ptr(), live.data_ptr(), n, fout.data_ptr(), iout.data_ptr(),
+        count.data_ptr(), stream)
     kernels.check(rc, "fused_wave")
     LAUNCHES += 1
     return fout, iout
+
+
+def _pend_contrib(pend, hit, env_here, p_env):
+    """A folded pending resolved against this bounce's closest hit: the env
+    leg pays where the ray escaped, the area leg where nothing closer than
+    the chosen light was hit. With p_env (env-IS) the env leg's MIS weight
+    applies here; the BSDF pdf rides the env lanes' t_light."""
+    coeff, t_light, is_env = pend["coeff"], pend["t_light"], pend["is_env"]
+    vis_area = hit.t >= t_light * (1.0 - 1e-3)
+    okp = torch.where(is_env, ~hit.hit, (t_light > 0.0) & vis_area)
+    env_term = coeff * env_here
+    if p_env is not None:
+        w_e = t_light * t_light / torch.clamp_min(
+            t_light * t_light + p_env * p_env, 1e-30)
+        env_term = env_term * torch.where(is_env, w_e, 1.0)[:, None]
+    pc = torch.where(is_env[:, None], env_term, coeff)
+    return torch.where(okp[:, None], pc, 0.0)
 
 
 # ---------------------------- the bounce loop -------------------------------
 
 
 class FusedWaveIntegrator:
-    """The wave bounce loop (the scene must pass scene_supports_wave): per
-    bounce, a closest-hit trace through dispatch, the outside evaluations,
-    one K4 launch, one occlusion launch for both shadow batches and the
-    apply step. The loop stays on the host."""
+    """The wave bounce loop (the scene must pass scene_supports_wave, and
+    scene_supports_wave_folded when folded): per bounce, a closest-hit
+    trace through dispatch, the outside evaluations, one K4 launch, one
+    occlusion launch for the shadow batches and the apply step. The loop
+    stays on the host.
+
+    folded: PBRT's one-sample fold of NEE. The BSDF-sampled MIS arm rides
+    the continuation ray, so a bounce traces one shadow batch, and its
+    pending contribution is resolved by the next bounce's closest hit (one
+    epilogue trace resolves the last bounce's)."""
 
     def __init__(self, scene, bvh_threshold: int | None = None,
                  folded: bool = False):
-        if folded:
-            raise NotImplementedError(
-                "pbrs_tpu.accel.fused_wave folded NEE is not ported to "
-                "pbrs_tpu_torch yet")
+        if folded and not scene_supports_wave_folded(scene):
+            raise ValueError(
+                "wave folded NEE does not support Fourier materials; use "
+                "folded=False or the general path")
         self.scene = scene
+        self.folded = bool(folded)
         self.tables = WaveTables.from_scene(scene)
         self.intersect_fn, self.occlude_fn = trace_dispatch.make_trace_fns(
             scene, True, bvh_threshold)
 
+    def _env(self, dirs):
+        """(env radiance, distribution pdf or None) along dirs: folded
+        env-IS takes both from one texel lookup."""
+        env = self.scene.env
+        if self.folded and self.tables.env_is:
+            return es.eval_env_pdf(env, dirs)
+        return lt.eval_env(env, dirs), None
+
     def render_samples(self, sampler, pixel_idx, sample_idx, max_depth=5,
                        msaa=2, rr_start=3):
         """(radiance [N,3], traced-ray count) for a (pixel, sample) batch:
-        alive closest-hit rays + 2 shadow rays per lane alive after its hit
-        (when the scene has lights), summed on the device."""
-        fk.rng_kind(sampler)
+        rays with a live extent at each closest hit, plus a shadow ray per
+        lane alive after its hit for each shadow batch (2, or 1 folded)
+        when the scene has lights, summed on the device."""
+        rng = fk.rng_kind(sampler)
         scene, tab = self.scene, self.tables
         rays = wavefront.camera_rays(scene, sampler, pixel_idx, sample_idx,
                                      msaa)
@@ -579,11 +639,13 @@ class FusedWaveIntegrator:
         spec = torch.zeros(n, dtype=torch.int32, device=dev)
         radiance = torch.zeros(n, 3, device=dev)
         count = torch.zeros(1, dtype=torch.int64, device=dev)
+        pend = None
         for bounce in range(max_depth):
             count += (rays.t_max > 0.0).sum()
             hit = self.intersect_fn(rays)
+            env_here, p_env = self._env(rays.dir)
             planes = [rays.dir.T, hit.pos.T, hit.normal.T, hit.dpdu.T,
-                      lt.eval_env(scene.env, rays.dir).T]
+                      env_here.T]
             safe = torch.clamp_min(hit.mat_id, 0).to(torch.int64)
             for s in tab.textured_slots:
                 planes.append(tex.eval_texture(
@@ -600,31 +662,45 @@ class FusedWaveIntegrator:
                                samp]).contiguous()
             fout, iout = shade(tab, fin, iin, count, seed=sampler.seed,
                                bounce=bounce, first=bounce == 0,
-                               rr_on=bounce > rr_start)
-            radiance = self._apply(radiance, hit, fout)
+                               rr_on=bounce > rr_start, rng=rng,
+                               folded=self.folded)
+            t_next = torch.where(iout[0] > 0, INF, 0.0)
+            if self.folded:
+                radiance, pend, t_next = self._apply_folded(
+                    radiance, hit, fout, env_here, p_env, pend, t_next)
+            else:
+                radiance = self._apply(radiance, hit, fout)
             rays = ray_mod.RayBatch(
                 origin=hit.pos + fout[26][:, None] * hit.normal * SPAWN_EPS,
-                dir=fout[23:26].T,
-                t_max=torch.where(iout[0] > 0, INF, 0.0))
+                dir=fout[23:26].T, t_max=t_next)
             beta = fout[27:30]
             alive, spec = iout[0], iout[1]
+        if self.folded and pend is not None:
+            # One bounded closest hit resolves the last bounce's pending.
+            pend_valid = pend["is_env"] | (pend["t_light"] > 0.0)
+            e_tmax = torch.where(pend["is_env"], rays.t_max,
+                                 pend["t_light"] * (1.0 + 1e-3))
+            rays = rays.replace(t_max=torch.where(pend_valid, e_tmax, 0.0))
+            count += (rays.t_max > 0.0).sum()
+            hit = self.intersect_fn(rays)
+            env_here, p_env = self._env(rays.dir)
+            radiance = radiance + _pend_contrib(pend, hit, env_here, p_env)
         return radiance, count[0]
+
+    def _shadow_origin(self, hit, side):
+        return hit.pos + side[:, None] * hit.normal * SPAWN_EPS
 
     def _apply(self, radiance, hit, fout):
         """radiance + this bounce's: emission, c1 unless shadow 1 is
         occluded, c2 + env coefficient x env radiance unless shadow 2 is;
         both shadow batches go through one occlusion launch."""
         scene = self.scene
-        pos, nrm = hit.pos, hit.normal
-        n = pos.shape[0]
-
-        def origin(side):
-            return pos + side[:, None] * nrm * SPAWN_EPS
-
+        n = hit.pos.shape[0]
         d1, d2 = fout[3:6].T, fout[11:14].T
         t1, t2 = fout[6], fout[14]
         occ = self.occlude_fn(ray_mod.RayBatch(
-            origin=torch.cat([origin(fout[7]), origin(fout[15])]),
+            origin=torch.cat([self._shadow_origin(hit, fout[7]),
+                              self._shadow_origin(hit, fout[15])]),
             dir=torch.cat([d1, d2]), t_max=torch.cat([t1, t2])))
         occ1 = occ[:n] & (t1 > 0.0)
         occ2 = occ[n:] & (t2 > 0.0)
@@ -640,3 +716,31 @@ class FusedWaveIntegrator:
         return (radiance + fout[0:3].T
                 + torch.where(occ1[:, None], 0.0, fout[8:11].T)
                 + torch.where(occ2[:, None], 0.0, fout[16:19].T + ec * env2))
+
+    def _apply_folded(self, radiance, hit, fout, env_here, p_env, pend,
+                      t_next):
+        """The folded apply step: resolve the previous bounce's pending
+        against this hit, add emission and c1 unless shadow 1 (one
+        occlusion launch) is occluded; return the radiance, this bounce's
+        pending (the area coefficient c2 with the light's distance in s2t,
+        or the env coefficient with the BSDF pdf in t_light under env-IS)
+        and the next rays' extents (a dead lane owing a pending keeps one
+        bounded resolution segment)."""
+        if pend is not None:
+            radiance = radiance + _pend_contrib(pend, hit, env_here, p_env)
+        t1 = fout[6]
+        occ1 = self.occlude_fn(ray_mod.RayBatch(
+            origin=self._shadow_origin(hit, fout[7]), dir=fout[3:6].T,
+            t_max=t1)) & (t1 > 0.0)
+        radiance = (radiance + fout[0:3].T
+                    + torch.where(occ1[:, None], 0.0, fout[8:11].T))
+        t_light = fout[14]
+        is_env = (fout[22] > 0.0 if self.tables.has_env
+                  else torch.zeros_like(t_light, dtype=torch.bool))
+        if self.tables.env_is:
+            t_light = torch.where(is_env, fout[22], t_light)
+        pend = {"coeff": fout[16:19].T + fout[19:22].T, "t_light": t_light,
+                "is_env": is_env}
+        owed = torch.where(is_env, INF, torch.where(
+            t_light > 0.0, t_light * (1.0 + 1e-3), 0.0))
+        return radiance, pend, torch.where(t_next > 0.0, t_next, owed)

@@ -4,6 +4,7 @@ far; any other flag or preset exits with "not yet ported".
     python -m pbrs_tpu_torch.cli --scene_name cornell_box --msaa 2 \\
         --depth 5 --resolution 256x256 --output cornell.exr
     python -m pbrs_tpu_torch.cli --pbrt_file scenes/interior/interior.pbrt
+    python -m pbrs_tpu_torch.cli --sampler sobol --integrator direct
 """
 
 from __future__ import annotations
@@ -24,15 +25,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="preset scene name")
     p.add_argument("--pbrt_file", default=None,
                    help="render a PBRT scene file instead of a preset")
-    p.add_argument("--integrator", default="path",
-                   help="path (the direct integrator is not ported yet)")
+    p.add_argument("--integrator", default="path", choices=["direct", "path"],
+                   help="path tracing, or direct lighting with a "
+                        "perfect-specular chain")
     p.add_argument("--msaa", type=int, default=2,
                    help="sqrt of samples-per-pixel")
     p.add_argument("--depth", type=int, default=5, help="max path depth")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--sampler", default="pcg",
+                   choices=["pcg", "sobol", "threefry"],
+                   help="random sampler: the pcg hash (default) or "
+                        "Owen-scrambled Sobol' (lower variance at equal spp) "
+                        "run the fused kernels; threefry takes the general "
+                        "wavefront")
     p.add_argument("--resolution", default=None, metavar="WxH",
                    help="override the scene camera resolution")
     p.add_argument("--output", default=None, help="output EXR/PNG path")
+    p.add_argument("--visualize_normals", action="store_true",
+                   help="also write <scene>-normals.png (1 spp)")
+    p.add_argument("--visualize_materials", action="store_true",
+                   help="also write <scene>-mtl.png (1 spp)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "path without kernels)")
@@ -56,9 +68,6 @@ def main(argv=None) -> int:
     args, rest = build_parser().parse_known_args(argv)
     if rest:
         sys.exit(f"pbrs_tpu_torch: {' '.join(rest)}: not yet ported")
-    if args.integrator != "path":
-        sys.exit(f"pbrs_tpu_torch: --integrator {args.integrator}: not yet "
-                 "ported")
     from . import render as render_mod
     from .io import image as io_image
     from .scene import presets
@@ -83,15 +92,25 @@ def main(argv=None) -> int:
                  "render on the CPU")
     spp = args.msaa * args.msaa
 
+    for flag, kind, suffix in ((args.visualize_normals, "normals", "normals"),
+                               (args.visualize_materials, "materials",
+                                "mtl")):
+        if flag:
+            img, _ = render_mod.render_image(scene, spp=1, integrator=kind,
+                                             device=device)
+            io_image.write_png(f"{name}-{suffix}.png", img)
+            print(f"wrote {name}-{suffix}.png")
+
     t0 = time.time()
     img, stats = render_mod.render_image(
-        scene, spp=spp, max_depth=args.depth, seed=args.seed, progress=True,
-        device=device)
+        scene, spp=spp, max_depth=args.depth, integrator=args.integrator,
+        seed=args.seed, progress=True, device=device,
+        sampler_kind=args.sampler)
     wall = time.time() - t0
     mrays = stats.traced_rays / max(stats.wall_time, 1e-9) / 1e6
     print(f"whole render time = {wall:.2f}s ({mrays:.1f} Mrays/s, "
           f"{stats.integrator} path on {device})")
-    out = args.output or f"{name}-path-{spp}spp.exr"
+    out = args.output or f"{name}-{args.integrator}-{spp}spp.exr"
     if out.endswith(".png"):
         io_image.write_png(out, img)
     else:

@@ -6,7 +6,8 @@
 // frame, albedo/emission fetch, none/const/gradient environment, one-light
 // quad NEE with MIS and both shadow sweeps, cosine BSDF sample, Russian
 // roulette and the next-ray spawn. Random numbers are the PCG counter hash
-// of core/sampler.py, in native uint32. The plain version is
+// or the Owen-scrambled Sobol' draw of core/sampler.py (the `rng` launch
+// argument), in native uint32. The plain version is
 // pbrs_tpu_torch/accel/fused_kernel.py:bounce_reference; every expression
 // here keeps its evaluation order, and the library is built with
 // -fmad=false and IEEE sqrt/div, so the two round alike.
@@ -60,9 +61,8 @@ static __device__ __forceinline__ void env_along(const Tables& tb, float x,
 // The bounce of one live lane. in[9]: origin, dir, beta; out[12]: radiance,
 // next origin, next dir, next beta. Returns the lane's traced-ray count.
 static __device__ unsigned bounce_lane(const Tables& tb, const float* in,
-                                       uint32_t seed, uint32_t pixu,
-                                       uint32_t smpu, uint32_t bounce,
-                                       bool first, bool rr_active, float* out,
+                                       const Draw& u1, bool first,
+                                       bool rr_active, float* out,
                                        int& alive_out) {
   const float rox = in[0], roy = in[1], roz = in[2];
   const float rdx = in[3], rdy = in[4], rdz = in[5];
@@ -167,11 +167,11 @@ static __device__ unsigned bounce_lane(const Tables& tb, const float* in,
   const int n_lights = tb.n_area + (tb.env_kind != ENV_NONE ? 1 : 0);
   if (n_lights > 0) {
     const float fn = (float)n_lights;
-    const float u_sel = u1(seed, pixu, smpu, bounce, DIM_LIGHT_SELECT, 0);
-    const float u_l0 = u1(seed, pixu, smpu, bounce, DIM_LIGHT_UV, 0);
-    const float u_l1 = u1(seed, pixu, smpu, bounce, DIM_LIGHT_UV, 1);
-    const float u_s0 = u1(seed, pixu, smpu, bounce, DIM_SCATTER_UV, 0);
-    const float u_s1 = u1(seed, pixu, smpu, bounce, DIM_SCATTER_UV, 1);
+    const float u_sel = u1(DIM_LIGHT_SELECT, 0);
+    const float u_l0 = u1(DIM_LIGHT_UV, 0);
+    const float u_l1 = u1(DIM_LIGHT_UV, 1);
+    const float u_s0 = u1(DIM_SCATTER_UV, 0);
+    const float u_s1 = u1(DIM_SCATTER_UV, 1);
     int chosen = (int)(u_sel * fn);
     chosen = chosen < n_lights - 1 ? chosen : n_lights - 1;
     const bool arm_area = chosen < tb.n_area;
@@ -294,8 +294,8 @@ static __device__ unsigned bounce_lane(const Tables& tb, const float* in,
   }
 
   // ---- BSDF sample for the next direction (cosine hemisphere) ----
-  const float u_b0 = u1(seed, pixu, smpu, bounce, DIM_BSDF_UV, 0);
-  const float u_b1 = u1(seed, pixu, smpu, bounce, DIM_BSDF_UV, 1);
+  const float u_b0 = u1(DIM_BSDF_UV, 0);
+  const float u_b1 = u1(DIM_BSDF_UV, 1);
   float ddx, ddy;
   concentric(u_b1 * 2.0f - 1.0f, u_b0 * 2.0f - 1.0f, ddx, ddy);
   const float ddz = sqrtf(max0(1.0f - ddx * ddx - ddy * ddy, 0.0f));
@@ -313,7 +313,7 @@ static __device__ unsigned bounce_lane(const Tables& tb, const float* in,
                       (float)0.07216883 * nbb;
     const float q = max0(1.0f - lum, (float)0.05);
     alive = alive &&
-            !(u1(seed, pixu, smpu, bounce, DIM_RUSSIAN_ROULETTE, 0) < q);
+            !(u1(DIM_RUSSIAN_ROULETTE, 0) < q);
     const float scale = alive ? 1.0f / max0(1.0f - q, (float)1e-6) : 1.0f;
     nbr = nbr * scale;
     nbg = nbg * scale;
@@ -340,7 +340,7 @@ __global__ void fused_bounce_kernel(
     const float* __restrict__ bank, int n_sph, int n_quad, int n_tri,
     int n_disk, const float* __restrict__ mats, int n_mats,
     const float* __restrict__ lights, int n_area,
-    const float* __restrict__ env, int env_kind, uint32_t seed,
+    const float* __restrict__ env, int env_kind, int rng, uint32_t seed,
     uint32_t bounce, int first, int rr_active, const float* __restrict__ fin,
     const int* __restrict__ alive_in, const int* __restrict__ pix,
     const int* __restrict__ samp, int n, float* __restrict__ fout,
@@ -357,9 +357,9 @@ __global__ void fused_bounce_kernel(
     for (int j = 0; j < 9; ++j) in[j] = fin[j * stride + lane];
     int alive = 0;
     if (alive_in[lane] > 0) {
-      rays = bounce_lane(tb, in, seed, (uint32_t)pix[lane],
-                         (uint32_t)samp[lane], bounce, first != 0,
-                         rr_active != 0, out, alive);
+      const Draw u1{rng, seed, (uint32_t)pix[lane], (uint32_t)samp[lane],
+                    bounce};
+      rays = bounce_lane(tb, in, u1, first != 0, rr_active != 0, out, alive);
     } else {
       // Dead lane: zero radiance, origin/dir/beta passed through.
       out[0] = out[1] = out[2] = 0.0f;
@@ -378,11 +378,12 @@ extern "C" {
 // fin [9, n] float32 (origin, dir, beta); alive_in, pix, samp [n] int32;
 // fout [12, n] float32 (radiance, next origin, next dir, next beta);
 // alive_out [n] int32; count: one uint64 the bounce's traced rays are added
-// to. Returns cudaGetLastError() after the launch.
+// to; rng 0 draws PCG, 1 Sobol'. Returns cudaGetLastError() after the
+// launch.
 int pbrs_fused_bounce(const float* bank, int n_sph, int n_quad, int n_tri,
                       int n_disk, const float* mats, int n_mats,
                       const float* lights, int n_area, const float* env,
-                      int env_kind, int seed, int bounce, int first,
+                      int env_kind, int rng, int seed, int bounce, int first,
                       int rr_active, const float* fin, const int* alive_in,
                       const int* pix, const int* samp, int n, float* fout,
                       int* alive_out, void* count, void* stream) {
@@ -395,7 +396,7 @@ int pbrs_fused_bounce(const float* bank, int n_sph, int n_quad, int n_tri,
   const int grid = (n + block - 1) / block;
   pbrs::fused_bounce_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       bank, n_sph, n_quad, n_tri, n_disk, mats, n_mats, lights, n_area, env,
-      env_kind, (uint32_t)seed, (uint32_t)bounce, first, rr_active, fin,
+      env_kind, rng, (uint32_t)seed, (uint32_t)bounce, first, rr_active, fin,
       alive_in, pix, samp, n, fout, alive_out,
       (unsigned long long*)count);
   return (int)cudaGetLastError();

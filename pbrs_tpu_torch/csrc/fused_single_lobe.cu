@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas kernel
 // pbrs_tpu/accel/fused_single_lobe.py:_bounce2_kernel (launched by
-// _bounce2_call), in its PCG mode. One launch runs a whole wavefront bounce
+// _bounce2_call), PCG or Sobol' (the `rng` launch argument). One launch runs a whole wavefront bounce
 // per lane: closest hit over the [P,16] bank, sphere/quad/triangle/disk hit
 // detail, shading frame, the material row, solid/checker/Perlin-marble
 // textures, per-lobe eval/pdf and the two-lobe mixture sample (Lambert,
@@ -60,6 +60,7 @@ struct Params {
   const float* env;  // [7]: color a, color b, world radius
   int env_kind;
   int two_slots;
+  int rng;
   uint32_t seed, bounce;
   int first, rr_active;
 };
@@ -376,7 +377,7 @@ static __device__ unsigned bounce_lane(const Params& P, const float* in,
   const float* o = in;
   const float* d = in + 3;
   const float* beta = in + 6;
-  const uint32_t seed = P.seed, bounce = P.bounce;
+  const Draw u1{P.rng, P.seed, pixu, smpu, P.bounce};
   unsigned n_rays = 1;
 
   bool hit;
@@ -424,11 +425,11 @@ static __device__ unsigned bounce_lane(const Params& P, const float* in,
   const int n_lights = P.n_delta + P.n_area + (has_env ? 1 : 0);
   const float fn = (float)n_lights;
   if (n_lights > 0 && alive) {
-    const float u_sel = u1(seed, pixu, smpu, bounce, DIM_LIGHT_SELECT, 0);
-    const float u_l0 = u1(seed, pixu, smpu, bounce, DIM_LIGHT_UV, 0);
-    const float u_l1 = u1(seed, pixu, smpu, bounce, DIM_LIGHT_UV, 1);
-    const float u_s0 = u1(seed, pixu, smpu, bounce, DIM_SCATTER_UV, 0);
-    const float u_s1 = u1(seed, pixu, smpu, bounce, DIM_SCATTER_UV, 1);
+    const float u_sel = u1(DIM_LIGHT_SELECT, 0);
+    const float u_l0 = u1(DIM_LIGHT_UV, 0);
+    const float u_l1 = u1(DIM_LIGHT_UV, 1);
+    const float u_s0 = u1(DIM_SCATTER_UV, 0);
+    const float u_s1 = u1(DIM_SCATTER_UV, 1);
     int chosen = (int)(u_sel * fn);
     chosen = chosen < n_lights - 1 ? chosen : n_lights - 1;
     const bool arm_delta = chosen < P.n_delta;
@@ -554,8 +555,8 @@ static __device__ unsigned bounce_lane(const Params& P, const float* in,
   }
 
   // ---- BSDF sample for the next direction ----
-  const float u_b0 = u1(seed, pixu, smpu, bounce, DIM_BSDF_UV, 0);
-  const float u_b1 = u1(seed, pixu, smpu, bounce, DIM_BSDF_UV, 1);
+  const float u_b0 = u1(DIM_BSDF_UV, 0);
+  const float u_b1 = u1(DIM_BSDF_UV, 1);
   const Sample s = mix.sample(u_b0, u_b1);
   float wn[3];
   fr.to_world(s.wi, wn);
@@ -570,7 +571,7 @@ static __device__ unsigned bounce_lane(const Params& P, const float* in,
                       (float)0.07216883 * nb[2];
     const float q = max0(1.0f - lum, (float)0.05);
     alive = alive &&
-            !(u1(seed, pixu, smpu, bounce, DIM_RUSSIAN_ROULETTE, 0) < q);
+            !(u1(DIM_RUSSIAN_ROULETTE, 0) < q);
     const float scale = alive ? 1.0f / max0(1.0f - q, (float)1e-6) : 1.0f;
     for (int i = 0; i < 3; ++i) nb[i] = nb[i] * scale;
   }
@@ -627,13 +628,13 @@ extern "C" {
 // int32; fout [12, n] float32 (radiance, next origin, next dir, next beta);
 // alive_out, spec_out [n] int32; count: one uint64 the bounce's traced rays
 // are added to. tex_kinds_mask is the bit set of the texture kinds the
-// textured slots use. Returns cudaGetLastError() after the launch.
+// textured slots use; rng 0 draws PCG, 1 Sobol'. Returns cudaGetLastError() after the launch.
 int pbrs_fused_single_lobe(
     const float* bank, int n_sph, int n_quad, int n_tri, int n_disk,
     const float* mats, int n_mats, int mat_cols, const float* texs,
     int n_texs, int tex_kinds_mask, const float* lights, int n_area,
     const float* delta, int n_delta, const float* env, int env_kind,
-    int two_slots, int seed, int bounce,
+    int two_slots, int rng, int seed, int bounce,
     int first, int rr_active, const float* fin, const int* alive_in,
     const int* spec_in, const int* pix, const int* samp, int n, float* fout,
     int* alive_out, int* spec_out, void* count, void* stream) {
@@ -653,6 +654,7 @@ int pbrs_fused_single_lobe(
   P.env = env;
   P.env_kind = env_kind;
   P.two_slots = two_slots;
+  P.rng = rng;
   P.seed = (uint32_t)seed;
   P.bounce = (uint32_t)bounce;
   P.first = first;

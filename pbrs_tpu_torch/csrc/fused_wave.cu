@@ -1,7 +1,8 @@
 // K4: the shade-only bounce for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel pbrs_tpu/accel/fused_wave.py:_shade_kernel
-// (launched by _shade_call), in its two-arm PCG mode. The trace stays
+// (launched by _shade_call): two-arm or folded NEE, PCG or Sobol' draws
+// (the `folded` and `rng` launch arguments). The trace stays
 // outside: one launch shades every lane of a wavefront bounce from its
 // hit detail -- the shading frame, the material row with up to five lobe
 // slots (Lambert, Oren-Nayar, isotropic microfacet, mirror, dielectric,
@@ -11,7 +12,11 @@
 // disk, triangle) + env (its importance-sampled draw evaluated outside)
 // with both MIS arms, and Russian roulette -- and writes two shadow queries
 // with their pending contributions, the env coefficient and BSDF pdf, the
-// next direction and throughput. The plain version is
+// next direction and throughput. Folded, the BSDF arm takes the
+// continuation sample (no second sample_mix) and only the light-sampled
+// shadow query is written; s2t carries the distance to the chosen area
+// light along the continuation ray, for the next bounce's closest hit to
+// resolve. The plain version is
 // pbrs_tpu_torch/accel/fused_wave.py:shade_reference; every expression here
 // keeps its evaluation order (shade_common.cuh, built with -fmad=false).
 //
@@ -54,7 +59,7 @@ struct WParams {
   const float* delta;
   int n_delta;
   float world_radius;
-  int has_env, env_is, tex_mask, n_in;
+  int has_env, env_is, tex_mask, n_in, rng, folded;
   uint32_t seed, bounce;
   int first, rr_on;
 };
@@ -165,7 +170,7 @@ static __device__ unsigned shade_lane(const WParams& P,
   const bool prev_spec = iin[3 * (size_t)n + lane] > 0;
   const uint32_t pixu = (uint32_t)iin[4 * (size_t)n + lane];
   const uint32_t smpu = (uint32_t)iin[5 * (size_t)n + lane];
-  const uint32_t seed = P.seed, bounce = P.bounce;
+  const Draw u1{P.rng, P.seed, pixu, smpu, P.bounce};
 
   // ---- shading frame: vecmath.orthonormal_frame(normal, dpdu) ----
   Frame fr;
@@ -204,12 +209,11 @@ static __device__ unsigned shade_lane(const WParams& P,
       rad[i] = beta[i] * (hit ? emi[i] : IN(12 + i));
   alive = alive && hit;
   const int n_lights = P.n_delta + P.n_area + (P.has_env ? 1 : 0);
-  const unsigned n_rays = (alive && n_lights > 0) ? 2u : 0u;
+  const unsigned n_rays =
+      (alive && n_lights > 0) ? (P.folded ? 1u : 2u) : 0u;
 
   // ---- BSDF sample for the next direction ----
-  const Sample bs = mix.sample(
-      u1(seed, pixu, smpu, bounce, DIM_BSDF_UV, 0),
-      u1(seed, pixu, smpu, bounce, DIM_BSDF_UV, 1));
+  const Sample bs = mix.sample(u1(DIM_BSDF_UV, 0), u1(DIM_BSDF_UV, 1));
   float wn[3];
   fr.to_world(bs.wi, wn);
 
@@ -219,11 +223,9 @@ static __device__ unsigned shade_lane(const WParams& P,
                   0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   if (n_lights > 0) {
     const float fn = (float)n_lights;
-    const float u_sel = u1(seed, pixu, smpu, bounce, DIM_LIGHT_SELECT, 0);
-    const float u_l0 = u1(seed, pixu, smpu, bounce, DIM_LIGHT_UV, 0);
-    const float u_l1 = u1(seed, pixu, smpu, bounce, DIM_LIGHT_UV, 1);
-    const float u_s0 = u1(seed, pixu, smpu, bounce, DIM_SCATTER_UV, 0);
-    const float u_s1 = u1(seed, pixu, smpu, bounce, DIM_SCATTER_UV, 1);
+    const float u_sel = u1(DIM_LIGHT_SELECT, 0);
+    const float u_l0 = u1(DIM_LIGHT_UV, 0);
+    const float u_l1 = u1(DIM_LIGHT_UV, 1);
     int chosen = (int)(u_sel * fn);
     chosen = chosen < n_lights - 1 ? chosen : n_lights - 1;
     const bool arm_delta = chosen < P.n_delta;
@@ -311,20 +313,21 @@ static __device__ unsigned shade_lane(const WParams& P,
     }
 
     // -------- BSDF-sampled arm (area MIS + env): shadow query 2 --------
+    // Folded, the continuation sample is the arm's and the next bounce's
+    // closest hit resolves its visibility.
     if (P.n_area > 0 || P.has_env) {
-      const Sample ss = mix.sample(u_s0, u_s1);
-      float w2[3];
-      fr.to_world(ss.wi, w2);
+      Sample ss = bs;
+      float w2[3] = {wn[0], wn[1], wn[2]};
+      if (!P.folded) {
+        ss = mix.sample(u1(DIM_SCATTER_UV, 0), u1(DIM_SCATTER_UV, 1));
+        fr.to_world(ss.wi, w2);
+      }
       const float cos2a = fabsf(w2[0] * nx + w2[1] * ny + w2[2] * nz);
       const float f2[3] = {ss.f[0] * cos2a, ss.f[1] * cos2a, ss.f[2] * cos2a};
       bool hit_l = false;
       float t_hit = 0.0f, pdf_l2 = 0.0f;
       if (P.n_area > 0) area_query(L, p, w2[0], w2[1], w2[2], hit_l, t_hit,
                                    pdf_l2);
-      float dir2[3];
-      for (int i = 0; i < 3; ++i) dir2[i] = arm_env ? w2[i] : t_hit * w2[i];
-      const float side2 =
-          (dir2[0] * nx + dir2[1] * ny + dir2[2] * nz >= 0.0f) ? 1.0f : -1.0f;
       const bool f_any = (f2[0] > 0.0f) || (f2[1] > 0.0f) || (f2[2] > 0.0f);
       bool valid_b = false, valid_e = false;
       if (P.n_area > 0) {
@@ -348,9 +351,16 @@ static __device__ unsigned shade_lane(const WParams& P,
           o2[8 + i] = alive ? beta[i] * f2[i] * ce_ * fn : 0.0f;
         o2[11] = valid_e ? ss.pdf : 0.0f;
       }
-      for (int i = 0; i < 3; ++i) o2[i] = dir2[i];
-      o2[3] = valid_e ? inf_f() : (valid_b ? SHADOW_T : 0.0f);
-      o2[4] = side2;
+      if (P.folded) {
+        o2[3] = valid_b ? t_hit : 0.0f;
+      } else {
+        float dir2[3];
+        for (int i = 0; i < 3; ++i) dir2[i] = arm_env ? w2[i] : t_hit * w2[i];
+        for (int i = 0; i < 3; ++i) o2[i] = dir2[i];
+        o2[3] = valid_e ? inf_f() : (valid_b ? SHADOW_T : 0.0f);
+        o2[4] = (dir2[0] * nx + dir2[1] * ny + dir2[2] * nz >= 0.0f) ? 1.0f
+                                                                      : -1.0f;
+      }
     }
   }
 
@@ -366,7 +376,7 @@ static __device__ unsigned shade_lane(const WParams& P,
                       (float)0.07216883 * nb[2];
     const float q = max0(1.0f - lum, (float)0.05);
     alive = alive &&
-            !(u1(seed, pixu, smpu, bounce, DIM_RUSSIAN_ROULETTE, 0) < q);
+            !(u1(DIM_RUSSIAN_ROULETTE, 0) < q);
     const float scale = alive ? 1.0f / max0(1.0f - q, (float)1e-6) : 1.0f;
     for (int i = 0; i < 3; ++i) nb[i] = nb[i] * scale;
   }
@@ -424,15 +434,16 @@ extern "C" {
 // beta); iin [6, n] int32 (mat_id, hit, alive, spec, pixel, sample);
 // group_live [ceil(n / 8192)] int32; fout [30, n] float32; iout [2, n]
 // int32 (alive, spec); count: one uint64 the pass's shadow rays are added
-// to. tex_mask has bit s set for a textured slot s. Returns
-// cudaGetLastError() after the launch.
+// to. tex_mask has bit s set for a textured slot s; rng 0 draws PCG, 1
+// Sobol'; folded 1 takes the folded NEE. Returns cudaGetLastError() after
+// the launch.
 int pbrs_fused_wave(const float* mats, int n_mats, int mat_cols, int n_slots,
                     const float* lights, int n_area, const float* delta,
                     int n_delta, float world_radius, int has_env, int env_is,
-                    int tex_mask, int seed, int bounce, int first, int rr_on,
-                    const float* fin, int n_in, const int* iin,
-                    const int* group_live, int n, float* fout, int* iout,
-                    void* count, void* stream) {
+                    int tex_mask, int rng, int folded, int seed, int bounce,
+                    int first, int rr_on, const float* fin, int n_in,
+                    const int* iin, const int* group_live, int n, float* fout,
+                    int* iout, void* count, void* stream) {
   pbrs::WParams P;
   P.mats = mats;
   P.n_mats = n_mats;
@@ -446,6 +457,8 @@ int pbrs_fused_wave(const float* mats, int n_mats, int mat_cols, int n_slots,
   P.env_is = env_is;
   P.tex_mask = tex_mask;
   P.n_in = n_in;
+  P.rng = rng;
+  P.folded = folded;
   P.seed = (uint32_t)seed;
   P.bounce = (uint32_t)bounce;
   P.first = first;

@@ -1,11 +1,14 @@
 """Next-event estimation with multiple importance sampling. Mirrors
-pbrs_tpu/integrators/nee.py in its two-arm mode for delta lights, area
-lights and every environment kind, with the importance-sampled arm of an
-image environment (the folded mode is not ported yet).
+pbrs_tpu/integrators/nee.py for delta lights, area lights and every
+environment kind, with the importance-sampled arm of an image
+environment, in its two-arm and folded modes.
 
-One light is chosen uniformly per ray among delta + area + env; two shadow
-batches per call: the light-sampled direction and the BSDF-sampled one
-(shared by the area-MIS arm and the env arm).
+One light is chosen uniformly per ray among delta + area + env. Two-arm:
+two shadow batches per call, the light-sampled direction and the
+BSDF-sampled one (shared by the area-MIS arm and the env arm). Folded:
+the path's own BSDF sample is the second arm's, so only the light-sampled
+batch is traced and the second arm is returned as a pending contribution
+for the next bounce's closest hit to resolve.
 """
 
 from __future__ import annotations
@@ -26,9 +29,19 @@ def _power2_heuristic(f_pdf, g_pdf):
 
 
 def uniform_sample_one_light(scene, lobes, frame, hit_pos, hit_normal, wo,
-                             u_select, u_light, u_scatter, occlude_fn, alive):
+                             u_select, u_light, u_scatter, occlude_fn, alive,
+                             path_sample=None):
     """Direct lighting [N,3] at shading points. `occlude_fn(rays)` is the
-    any-hit query; lanes with `alive` false get t_max=0 shadow rays."""
+    any-hit query; lanes with `alive` false get t_max=0 shadow rays.
+
+    path_sample: the folded mode. Given the path's own BSDF sample (f, wi,
+    pdf, is_delta), returns (light-arm radiance, pending): the
+    BSDF-sampled arm is not traced here, and pending is {coeff [N,3],
+    t_light [N], is_env [N]}: at the next hit add coeff * env(dir) where
+    is_env and the ray escaped, and coeff where not is_env and hit.t >=
+    t_light (the chosen light was the closest thing along the ray). Under
+    env-IS the env lanes carry the BSDF pdf in t_light, for the deferred
+    MIS weight."""
     def mask_dead(rays):
         return rays.replace(t_max=torch.where(alive, rays.t_max, 0.0))
 
@@ -105,6 +118,10 @@ def uniform_sample_one_light(scene, lobes, frame, hit_pos, hit_normal, wo,
         contrib = f_l * li_l * (weight * vm.weak_recip(pdf_l))[..., None]
         result = result + torch.where(valid[..., None], contrib, 0.0)
 
+    if path_sample is not None:
+        return result * float(n_lights), _folded_pending(
+            scene, path_sample, hit_pos, hit_normal, a_idx, arm_area, arm_env,
+            n_lights, env_is)
     if not (n_area > 0 or has_env):
         return result * float(n_lights)
 
@@ -154,3 +171,42 @@ def uniform_sample_one_light(scene, lobes, frame, hit_pos, hit_normal, wo,
 
     # 1 / light_pdf = n_lights.
     return result * float(n_lights)
+
+
+def _folded_pending(scene, path_sample, hit_pos, hit_normal, a_idx, arm_area,
+                    arm_env, n_lights, env_is):
+    """The BSDF-sampled arm of the folded mode, as the next bounce's
+    pending contribution (see uniform_sample_one_light)."""
+    n = hit_pos.shape[0]
+    coeff = torch.zeros_like(hit_pos)
+    t_light = torch.zeros(n, device=hit_pos.device)
+    is_env = torch.zeros(n, dtype=torch.bool, device=hit_pos.device)
+    if scene.area_lights.count == 0 and scene.env.kind == lt.ENV_NONE:
+        return {"coeff": coeff, "t_light": t_light, "is_env": is_env}
+    f_b, wi_b, pdf_b, is_delta_b = path_sample
+    f_b = f_b * torch.abs(vm.dot(hit_normal, wi_b))[..., None]
+    if scene.area_lights.count > 0:
+        li_b, pdf_light_b, hit_light, pt_b = lt.area_radiance_to(
+            scene.area_lights, a_idx, hit_pos, wi_b)
+        weight_b = _power2_heuristic(pdf_b, pdf_light_b)
+        valid_b = (arm_area & hit_light & ~is_delta_b & (pdf_b > 0.0)
+                   & (pdf_light_b > 0.0)
+                   & ((f_b[..., 0] > 0.0) | (f_b[..., 1] > 0.0)
+                      | (f_b[..., 2] > 0.0)))
+        contrib_b = f_b * li_b * (weight_b * vm.weak_recip(pdf_b))[
+            ..., None] * float(n_lights)
+        coeff = torch.where(valid_b[..., None], contrib_b, coeff)
+        # Distance along the continuation ray (spawned the same way) to the
+        # light point.
+        org = ray_mod.spawn(hit_pos, hit_normal, wi_b).origin
+        t_light = torch.where(valid_b, vm.dot(pt_b - org, wi_b), t_light)
+    if scene.env.kind != lt.ENV_NONE:
+        # The env radiance is the next bounce's escape term: the
+        # coefficient leaves it (and, under env-IS, the MIS weight) out.
+        valid_e = arm_env & ~is_delta_b & (pdf_b > 0.0)
+        ce = f_b * vm.weak_recip(pdf_b)[..., None] * float(n_lights)
+        coeff = torch.where(valid_e[..., None], ce, coeff)
+        if env_is:
+            t_light = torch.where(valid_e, pdf_b, t_light)
+        is_env = valid_e
+    return {"coeff": coeff, "t_light": t_light, "is_env": is_env}

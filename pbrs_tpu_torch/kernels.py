@@ -40,16 +40,16 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "pbrs_trace_flat": [_VP, _I, _I, _I, _I, _VP, _I, _VP, _VP, _I, _VP],
     "pbrs_fused_bounce": [_VP, _I, _I, _I, _I, _VP, _I, _VP, _I, _VP, _I,
-                          _I, _I, _I, _I, _VP, _VP, _VP, _VP, _I, _VP, _VP,
-                          _VP, _VP],
+                          _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP, _I, _VP,
+                          _VP, _VP, _VP],
     "pbrs_fused_single_lobe": [_VP, _I, _I, _I, _I, _VP, _I, _I, _VP, _I, _I,
                                _VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _I,
-                               _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP,
+                               _I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP,
                                _VP, _VP],
     "pbrs_trace_bvh": [_VP, _VP, _VP, _I, _VP, _I, _VP, _VP, _I, _VP],
     "pbrs_fused_wave": [_VP, _I, _I, _I, _VP, _I, _VP, _I, _F, _I, _I, _I,
-                        _I, _I, _I, _I, _VP, _I, _VP, _VP, _I, _VP, _VP, _VP,
-                        _VP],
+                        _I, _I, _I, _I, _I, _I, _VP, _I, _VP, _VP, _I, _VP,
+                        _VP, _VP, _VP],
     "pbrs_error_string": [_I],
     "pbrs_max_bank_rows": [],
     "pbrs_bvh_max_stack": [],

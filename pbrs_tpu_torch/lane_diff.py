@@ -7,9 +7,11 @@
         --pbrt_file scenes/interior/interior.pbrt --resolution 1024x1024 \\
         --depth 5 --device cpu --pixels chiprun_out/interior_lanes.json
 
-Renders sample 0 (PCG seed 0) of a wave-eligible scene through the wave
-path (K4) and the general path on one device, on the same random streams,
-and finds the lanes outside atol 3e-5, rtol 2e-4. With --pixels it takes
+Renders sample 0 (PCG seed 0, two-arm NEE) of a wave-eligible scene
+through the wave path (K4) and the general path on one device, on the same
+random streams, and finds the lanes outside atol 3e-5, rtol 2e-4
+(``_Paths`` also takes the Sobol' sampler and folded NEE, as
+chip_smoke.py's phases 18 and 22 use it). With --pixels it takes
 the lanes of an earlier run's JSON instead, e.g. to render on the CPU the
 lanes found on the card. It renders those lanes again on their own with
 every closest-hit and shadow query logged, and at max depth 1..D, and
@@ -71,20 +73,23 @@ def _keep_occ(occ):
 
 class _Paths:
     """The wave path and the general path of a scene, each with its tracer
-    built once."""
+    built once, on one sampler (seed 0 of "pcg", "sobol") and NEE mode."""
 
-    def __init__(self, scene):
+    def __init__(self, scene, sampler="pcg", nee_mode="twoarm"):
         from .accel import dispatch
         from .accel import fused_wave as fw
+        from .render import SAMPLERS
 
         self.scene = scene
-        self.wave = fw.FusedWaveIntegrator(scene)
+        self.sampler = SAMPLERS[sampler](0)
+        self.nee_mode = nee_mode
+        self.wave = fw.FusedWaveIntegrator(scene,
+                                           folded=nee_mode == "folded")
         self.fns = {"wave": (self.wave.intersect_fn, self.wave.occlude_fn),
                     "general": dispatch.make_trace_fns(scene, True)}
 
     def render(self, path, pix, depth, msaa, log=False):
         """(radiance [N,3], closest-hit log, occlusion log) of one path."""
-        from .core import sampler as smp
         from .integrators import wavefront
 
         hits, occl = [], []
@@ -94,26 +99,29 @@ class _Paths:
             occ = _logged(occ, occl, _keep_occ)
         if path == "wave":
             self.wave.intersect_fn, self.wave.occlude_fn = isect, occ
-            rad, _ = self.wave.render_samples(smp.PCGSampler(0), pix, 0,
+            rad, _ = self.wave.render_samples(self.sampler, pix, 0,
                                               max_depth=depth, msaa=msaa)
         else:
             rad, _ = wavefront.render_samples(
-                self.scene, smp.PCGSampler(0), pix, 0, isect, occ,
-                max_depth=depth, msaa=msaa)
+                self.scene, self.sampler, pix, 0, isect, occ,
+                max_depth=depth, msaa=msaa, nee_mode=self.nee_mode)
         return rad, hits, occl
 
 
 def _shadows(occl, n, depth):
     """Per bounce, ((dir, cast, blocked) of the light-sampled query, the
-    same of the BSDF-sampled one); a query is cast when its t_max > 0. The
-    wave path makes one occlusion call a bounce over both batches, the
-    general path one per batch."""
+    same of the BSDF-sampled one, which folded NEE does not cast); a query
+    is cast when its t_max > 0. The wave path makes one occlusion call a
+    bounce (over both batches when two-arm), the general path one per
+    batch."""
     out = []
     per = 1 if len(occl) == depth else 2
     for b in range(depth):
         if per == 1:
             d, t, occ = occl[b]
-            pairs = [(d[:n], t[:n], occ[:n]), (d[n:], t[n:], occ[n:])]
+            pairs = [(d[:n], t[:n], occ[:n])]
+            if d.shape[0] > n:
+                pairs.append((d[n:], t[n:], occ[n:]))
         else:
             pairs = occl[2 * b:2 * b + 2]
         out.append([(d, t > 0.0, o & (t > 0.0)) for d, t, o in pairs])
@@ -163,7 +171,9 @@ def _nee_cause(arms_w, arms_g, i, inc_w, inc_g):
 
 def classify(scene, pix, depth, msaa, paths=None):
     """Per lane of pix: the bounce where the paths part and how, with the
-    radiance of both at every depth and the materials each path hit."""
+    radiance of both at every depth and the materials each path hit.
+    `paths` (a _Paths) sets the sampler and NEE mode: PCG two-arm by
+    default."""
     paths = paths or _Paths(scene)
     cum = {p: [paths.render(p, pix, d, msaa)[0].cpu()
                for d in range(1, depth + 1)] for p in ("wave", "general")}

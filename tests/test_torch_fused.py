@@ -135,6 +135,10 @@ def test_integrators_match_reference_per_lane(scenes, sample):
 
 
 def test_rng_kind_takes_pcg_only():
+    """The fused kernels draw PCG and Sobol' in-kernel; a threefry sampler
+    (jax.random's stream) is refused and takes the general wavefront."""
     assert tfk.rng_kind(tsmp.PCGSampler(1)) == "pcg"
-    with pytest.raises(TypeError):
-        tfk.rng_kind(jsmp.SobolSampler(1))
+    assert tfk.rng_kind(tsmp.SobolSampler(1)) == "sobol"
+    for sampler in (tsmp.ThreefrySampler(1), jsmp.SobolSampler(1)):
+        with pytest.raises(TypeError):
+            tfk.rng_kind(sampler)

@@ -123,6 +123,7 @@ def test_new_modules_import_without_jax():
         "import pbrs_tpu_torch.radiometry, pbrs_tpu_torch.core.spline\n"
         "import pbrs_tpu_torch.scene.pbrt.loader\n"
         "import pbrs_tpu_torch.lane_diff\n"
+        "import pbrs_tpu_torch.integrators.direct\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'pbrs_tpu')]\n"
         "assert not bad, bad\n")
@@ -138,3 +139,25 @@ def test_every_source_is_compiled_on_its_own():
                                     if p.suffix == ".cu"}
     assert "-shared" not in kernels.NVCC_FLAGS
     assert kernels.ptxas_log_path().suffix == ".log"
+
+
+def test_launch_signatures_match_the_sources():
+    """Each C entry point's ctypes argument list (kernels._SIGNATURES)
+    matches the prototype in its source, argument for argument: a pointer,
+    an int or a float."""
+    import ctypes
+    import re
+
+    seen = set()
+    for src in kernels.SOURCES:
+        text = (kernels.CSRC / src).read_text()
+        for name, args in re.findall(r"\nint (pbrs_\w+)\(([^)]*)\)\s*\{",
+                                     text):
+            kinds = [ctypes.c_void_p if "*" in a else
+                     ctypes.c_float if a.split()[0] == "float" else
+                     ctypes.c_int
+                     for a in (x.strip() for x in args.split(",")) if a]
+            assert kinds == kernels._SIGNATURES[name], name
+            seen.add(name)
+    assert {"pbrs_fused_bounce", "pbrs_fused_single_lobe",
+            "pbrs_fused_wave", "pbrs_trace_flat", "pbrs_trace_bvh"} <= seen

@@ -76,7 +76,7 @@ def test_cli_writes_exr(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [["--checkpoint", "film.npz"],
                                   ["--scene_name", "fourier_plastic"],
-                                  ["--integrator", "direct"]])
+                                  ["--filter", "gaussian:1.5"]])
 def test_cli_refuses_unported(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(argv)
@@ -105,8 +105,17 @@ def test_card_is_the_default(monkeypatch):
 
 
 def test_unported_integrator_and_route_raise():
+    """Every integrator, sampler and NEE mode of pbrs_tpu is ported; an
+    unknown one, an unknown route, and the options still unported
+    (checkpoints, pixel filters) are refused."""
     scene = cli.with_resolution(presets.cornell_box(), 8, 8)
-    with pytest.raises(NotImplementedError, match="direct"):
-        render.render_image(scene, integrator="direct")
-    with pytest.raises(ValueError, match="route"):
-        render.render_image(scene, route="fast")
+    for kw, what in (({"integrator": "bdpt"}, "integrator"),
+                     ({"route": "fast"}, "route"),
+                     ({"sampler_kind": "halton"}, "sampler_kind"),
+                     ({"nee_mode": "onearm"}, "nee_mode")):
+        with pytest.raises(ValueError, match=what):
+            render.render_image(scene, device="cpu", **kw)
+    for kw in ({"checkpoint_path": "film.npz"},
+               {"pixel_filter": ("gaussian", 1.5)}):
+        with pytest.raises(TypeError):
+            render.render_image(scene, device="cpu", **kw)

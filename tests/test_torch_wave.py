@@ -210,15 +210,27 @@ def test_dead_groups_pass_through(zoo):
 
 
 def test_refusals(zoo):
+    """What the wave path still refuses: another device, a threefry sampler
+    (the general wavefront draws it) and folded NEE on a scene with a
+    FOURIER lobe (the Fourier override is two-arm only)."""
+    import dataclasses
+
+    from pbrs_tpu_torch.bxdf import lobes as lb
+
     _, tscene, calls, *_ = zoo
     tab, fin, iin, kw, _ = calls[0]
     with pytest.raises(ValueError):
         fw.shade(tab, fin.to("meta"), iin.to("meta"), None, **kw)
-    with pytest.raises(NotImplementedError, match="folded"):
-        fw.FusedWaveIntegrator(tscene, folded=True)
-    with pytest.raises(TypeError):
-        fw.FusedWaveIntegrator(tscene).render_samples(
-            jsmp.SobolSampler(1), torch.arange(4), 0)
+    kind = tscene.materials.kind.clone()
+    kind[1, 0] = lb.FOURIER
+    fourier = tscene.replace(materials=dataclasses.replace(
+        tscene.materials, kind=kind))
+    with pytest.raises(ValueError, match="Fourier"):
+        fw.FusedWaveIntegrator(fourier, folded=True)
+    for sampler in (tsmp.ThreefrySampler(1), jsmp.SobolSampler(1)):
+        with pytest.raises(TypeError):
+            fw.FusedWaveIntegrator(tscene).render_samples(
+                sampler, torch.arange(4), 0)
 
 
 def test_lane_classifier_on_agreeing_lanes(zoo):
