@@ -43,6 +43,8 @@ import time
 import numpy as np
 import torch
 
+from pbrs_tpu_torch.tools.prof_rounds import PEAK_BYTES, cuda_ms
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_REL_TOL = 2e-3  # tests/test_golden.py REL_TOL
 ATOL, RTOL = 2e-5, 1e-4  # tests/test_fused.py:38
@@ -53,6 +55,12 @@ K4_ATOL, K4_RTOL = 3e-5, 2e-4  # tests/test_fused_wave.py:84-100
 # everything at full width 472 of 40479 (1.17%) are outside (NVIDIA H100,
 # sample 0; PERF.md section 6): the limit leaves less than 2x room.
 MARBLE_RTOL, MARBLE_SHARE = 1e-2, 0.02
+# Fused (K2, K3) vs general per lane, phase 18, whatever the sampler: at
+# most this share of lanes outside the kernel's atol / rtol, and outside
+# rtol 1e-2. Measured on an NVIDIA H100 (PERF.md section 6): Cornell 58
+# (PCG) and 80 (Sobol') lanes, plates 574 and 563, of 1048576 (at most
+# 0.055%); 68 plates lanes outside rtol 1e-2 (0.0065%).
+FUSED_SHARE, FUSED_LOOSE_SHARE = 1e-3, 1e-4
 N_RAYS = 1 << 20
 SIZE, DEPTH, MSAA = 1024, 8, 2  # bench.py workload
 PLATES_DEPTH = 5  # benchmarks.py plates_mis_microfacet_1024
@@ -68,27 +76,10 @@ PRIM_OPS = (60, 77, 59, 34)
 MESH_LEVELS, MESH_DEPTH, EVERY_DEPTH = 5, 6, 5  # benchmarks.json cells
 BVH_SET = 1 << 16  # rays of each K5 parity set
 BVH_COUNT_SAMPLE = 4096  # lanes whose walk is counted for K5's bound
-SLEEP_CYCLES = 20_000_000  # ~10 ms of device clock ahead of a timed loop
-# Published H100 SXM peaks: FP32 outside the tensor cores and HBM3
-# bandwidth.
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
-
-
-def cuda_ms(fn, iters):
-    """Mean device time of fn over iters launches (CUDA events). The device
-    first sleeps for SLEEP_CYCLES, so the host queues the launches before
-    the start event and short kernels are not timed by their launch gaps."""
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+# Published H100 SXM peak of FP32 outside the tensor cores (the HBM3
+# bandwidth, PEAK_BYTES, and cuda_ms are prof_rounds', so the probe's Q2
+# and its phase here time the same way).
+PEAK_FLOPS = 67e12
 
 
 def cornell(size):
@@ -1625,7 +1616,9 @@ def fused_vs_general(dev, label, scene, depth, atol, rtol, phase):
     plates ~0.02% at atol 3e-5 rtol 2e-4, each side matching pbrs_tpu's on
     some: ROADMAP Queue 3), so the Sobol' run is held to its PCG twin: at
     most max(2 x the PCG count, 0.01%) lanes outside atol / rtol, at most
-    0.01% outside atol / rtol 1e-2, checksums within GOLDEN_REL_TOL."""
+    0.01% outside atol / rtol 1e-2, checksums within GOLDEN_REL_TOL. Both
+    runs are held to absolute ceilings as well: at most FUSED_SHARE of the
+    lanes outside atol / rtol and FUSED_LOOSE_SHARE outside rtol 1e-2."""
     from pbrs_tpu_torch import render
 
     n = scene.camera.width * scene.camera.height
@@ -1650,6 +1643,11 @@ def fused_vs_general(dev, label, scene, depth, atol, rtol, phase):
               f"{rtol}: {got[rng][0]}, rtol 1e-2: {got[rng][1]}; max |d| "
               f"{float((rad_f - rad_g).abs().max()):.3g}; checksum "
               f"{s_f:.6e} vs {s_g:.6e}; rays {int(cnt_f)} vs {int(cnt_g)}")
+    for rng, (bad, loose, _, _) in got.items():
+        if bad > FUSED_SHARE * n or loose > FUSED_LOOSE_SHARE * n:
+            raise AssertionError(f"{label}: {name} parts from the general "
+                                 f"path on too many lanes ({rng}: {bad}, "
+                                 f"{loose} of {n})")
     bad, loose, s_f, s_g = got["sobol"]
     if (bad > max(2 * got["pcg"][0], 1e-4 * n) or loose > 1e-4 * n
             or abs(s_f - s_g) > GOLDEN_REL_TOL * abs(s_g)
@@ -1772,15 +1770,378 @@ def phase_direct(dev, smi):
                                  "image")
 
 
+# ---------- K6, the gather-matmul probe, the render loop's options ----------
+
+
+# K6's float operations (csrc/trace_prim_bvh.cu): one node's slab test, and
+# one primitive test by kind (triangle, quad, sphere, disk); each add, sub,
+# mul, div, sqrt, min/max and comparison is one.
+K6_NODE_OPS = 26
+K6_PRIM_OPS = (94, 69, 60, 36)
+K6_SUBSET = 1 << 16  # lanes of each K6 ray set held against the plain walk
+K6_RANDOM_PRIMS = 4096  # random spheres and disks of the K6 phase
+# K6 against K5 on mesh_ball's triangles (different triangle tests, so a
+# ray at an edge or at a grazing angle may hit on one only): at most this
+# share of lanes may differ in whether they hit, or in t beyond rtol 1e-5.
+K6_K5_SHARE = 1e-4
+
+
+def pinhole_rays(lo, hi, n, dev):
+    """n coherent rays from a pinhole in front of the box [lo, hi], on a
+    square grid of directions over the box's front face."""
+    from pbrs_tpu_torch.geometry import ray as ray_mod
+
+    ctr, ext = (lo + hi) / 2, hi - lo
+    eye = ctr - np.array([0.0, 0.0, 2.0 * ext.max()])
+    side = int(np.sqrt(n))
+    u = (np.arange(n) % side + 0.5) / side - 0.5
+    v = (np.arange(n) // side + 0.5) / side - 0.5
+    d = np.stack([u * ext[0], v * ext[1], np.full(n, ctr[2] - eye[2])], 1)
+    o = np.broadcast_to(eye, (n, 3))
+    return ray_mod.make_rays(
+        torch.from_numpy(o.astype(np.float32)).to(dev),
+        torch.from_numpy(d.astype(np.float32)).to(dev))
+
+
+def k6_tracers(dev, rng):
+    """{label: (tracer, coherent rays, incoherent rays)} of the K6 phase:
+    mesh_ball(levels=5)'s 16384 triangles, everything's 2401 quads, and
+    K6_RANDOM_PRIMS random spheres and disks; 2^20 rays a set."""
+    from pbrs_tpu_torch.accel import mesh_bvh as mb
+    from pbrs_tpu_torch.scene import presets
+    from pbrs_tpu_torch.tools import prof_rounds as pr
+
+    out = {}
+    scene, (p0, p1, p2) = pr.mesh_ball_tris(dev)
+    tracer = mb.MeshBVHTracer(p0, p1, p2, 0, device=dev)
+    out["mesh_ball triangles"] = (tracer,) + pr.ray_sets(
+        scene, p0.min(0), p0.max(0), dev, n=N_RAYS)
+    scene = presets.everything().to(dev)
+    g = scene.geom
+    o, u, v = (x.cpu().numpy() for x in (g.quad_origin, g.quad_u, g.quad_v))
+    corners = np.stack([o, o + u, o + v, o + u + v])
+    gid = np.arange(o.shape[0]).astype(np.float32)
+    tracer = mb.PrimBVHTracer(mb.KIND_QUAD, mb.quad_slot_cols(o, u, v, gid),
+                              corners.min(0), corners.max(0), device=dev)
+    out["everything quads"] = (tracer,) + pr.ray_sets(
+        scene, corners.min((0, 1)), corners.max((0, 1)), dev, n=N_RAYS)
+    n = K6_RANDOM_PRIMS
+    c = rng.uniform(-10, 10, (n, 3)).astype(np.float32)
+    gid = np.arange(n).astype(np.float32)
+    r = rng.uniform(0.05, 0.5, n).astype(np.float32)
+    nrm = rng.normal(size=(n, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    radial = np.cross(nrm, rng.normal(size=(n, 3))).astype(np.float32)
+    radial *= r[:, None] / np.linalg.norm(radial, axis=1, keepdims=True)
+    radial = radial.astype(np.float32)
+    for label, kind, cols, ext in (
+            ("random spheres", mb.KIND_SPHERE,
+             mb.sphere_slot_cols(c, r, gid), r[:, None]),
+            ("random disks", mb.KIND_DISK,
+             mb.disk_slot_cols(c, nrm, radial, gid), r[:, None])):
+        lo, hi = c - ext, c + ext
+        tracer = mb.PrimBVHTracer(kind, cols, lo, hi, device=dev)
+        incoherent = pr.ray_sets(scene, lo.min(0), hi.max(0), dev,
+                                 n=N_RAYS)[1]
+        out[label] = (tracer, pinhole_rays(lo.min(0), hi.max(0), N_RAYS,
+                                           dev), incoherent)
+    return out
+
+
+def k6_check(tracer, rays, any_hit, subset):
+    """K6 through the tracer (sorted lanes) against its plain walk on the
+    lanes `subset` (None: all): (lanes whose t bits differ, whose id
+    differs, hits, plain ms, {node_tests, prim_tests} of the checked
+    lanes, kernel (t, id))."""
+    from pbrs_tpu_torch.accel import mesh_bvh as mb
+    from pbrs_tpu_torch.geometry import ray as ray_mod
+
+    t_k, id_k = tracer.trace(rays, any_hit=any_hit)
+    planes = ray_mod.to_planes(rays)
+    if subset is not None:
+        planes, t_c, id_c = planes[:, subset], t_k[subset], id_k[subset]
+    else:
+        t_c, id_c = t_k, id_k
+    work = {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t_p, id_p = mb.walk_reference(tracer, planes.contiguous(), any_hit, work)
+    end.record()
+    torch.cuda.synchronize()
+    bad_t = int((t_c.view(torch.int32) != t_p.view(torch.int32)).sum())
+    bad_id = int((id_c != id_p).sum())
+    return (bad_t, bad_id, int(torch.isfinite(t_c).sum()),
+            start.elapsed_time(end), work, (t_k, id_k))
+
+
+def phase_k6(dev, smi, rng):
+    """Phase 25, K6 (csrc/trace_prim_bvh.cu) on its own path, the
+    PrimBVHTracer / MeshBVHTracer entry points (no render path reaches
+    it): each tracer on 2^20 coherent and 2^20 incoherent rays, closest
+    and any hit, against the plain walk on every 16th lane (all lanes of
+    mesh_ball's coherent closest hit, the timed entry); mesh_ball's
+    closest hits against K5's; a poisoned skip table; the device ms a
+    launch and its bound. Returns the kernel's report and its launches."""
+    import copy
+
+    from pbrs_tpu_torch.accel import mesh_bvh as mb
+    from pbrs_tpu_torch.accel import treelet as tl
+    from pbrs_tpu_torch.geometry import ray as ray_mod
+
+    sets = k6_tracers(dev, rng)
+    subset = torch.arange(0, N_RAYS, N_RAYS // K6_SUBSET, device=dev)
+    mb.LAUNCHES = 0
+    results = {}
+    for label, (tracer, coherent, incoherent) in sets.items():
+        for rays_label, rays in (("coherent", coherent),
+                                 ("incoherent", incoherent)):
+            for any_hit in (False, True):
+                entry = (label == "mesh_ball triangles"
+                         and rays_label == "coherent" and not any_hit)
+                results[label, rays_label, any_hit] = k6_check(
+                    tracer, rays, any_hit, None if entry else subset)
+    launches = mb.LAUNCHES
+    report = {"max_abs_err": 0.0}
+    bad_total = 0
+    for (label, rays_label, any_hit), res in results.items():
+        bad_t, bad_id, hits, plain_ms, work, _ = res
+        tracer, rays = sets[label][0], sets[label][1 if rays_label ==
+                                                      "coherent" else 2]
+        order = mb._octant_cell_order(rays)
+        planes = ray_mod.to_planes(ray_take(rays, order))
+        ms = cuda_ms(lambda: mb.trace_planes(tracer, planes, any_hit), 10)
+        entry = (label, rays_label, any_hit) == ("mesh_ball triangles",
+                                                 "coherent", False)
+        scale = 1 if entry else N_RAYS / K6_SUBSET
+        tables = 4 * (tracer.nodes.numel() + tracer.fields.numel()
+                      + tracer.slot_gid.numel())
+        b_ms, by = bound(N_RAYS * (7 * 4 + 8) + tables, scale * (
+            work.get("node_tests", 0) * K6_NODE_OPS
+            + work.get("prim_tests", 0) * K6_PRIM_OPS[tracer.kind]))
+        mode = "any hit" if any_hit else "closest"
+        print(f"phase 25 K6 {label} ({tracer.n_prims} prims, "
+              f"{tracer.num_nodes} nodes), {rays_label} {mode}: "
+              f"{N_RAYS} rays, {hits} hits of {int(N_RAYS / scale)} checked;"
+              f" lanes differing from the plain walk: t bits {bad_t}, id "
+              f"{bad_id}; {ms:.4f} ms a launch, plain {plain_ms:.2f} ms, "
+              f"bound {b_ms:.4f} ms ({by}; {scale * work.get('node_tests', 0):.4g}"
+              f" node and {scale * work.get('prim_tests', 0):.4g} primitive "
+              f"tests) [{smi}]")
+        bad_total += bad_t + bad_id
+        if entry:
+            report.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=by)
+    if bad_total:
+        raise AssertionError("K6 disagrees with its plain walk")
+    # K6 against K5 on the same triangles. K5 settles exact-t ties by the
+    # lowest id, K6 by the first leaf visited; their triangle tests differ,
+    # so only t and whether a ray hits are compared.
+    tracer, coherent, incoherent = sets["mesh_ball triangles"]
+    g = tracer.fields.cpu().numpy()
+    order = np.argsort(tracer.slot_gid.cpu().numpy())
+    p0, p1, p2 = (g[order, 3 * k:3 * k + 3] for k in range(3))
+    fam = tl.tri_tracer(p0, p1, p2, 0, device=dev)
+    for rays_label, rays in (("coherent", coherent),
+                             ("incoherent", incoherent)):
+        t6 = results["mesh_ball triangles", rays_label, False][5][0]
+        t5, _ = fam.trace(rays)
+        h5, h6 = torch.isfinite(t5), torch.isfinite(t6)
+        hit_diff = int((h5 != h6).sum())
+        both = h5 & h6
+        t_diff = int((both & ~torch.isclose(t6, t5, rtol=1e-5,
+                                            atol=0.0)).sum())
+        err = float((t6 - t5).abs()[both].max()) if bool(both.any()) else 0.0
+        print(f"phase 25 K6 vs K5 on mesh_ball, {rays_label} closest: "
+              f"lanes hitting on one only {hit_diff}, t beyond rtol 1e-5 "
+              f"{t_diff} of {int(both.sum())} hit by both; max |dt| "
+              f"{err:.3g}")
+        if max(hit_diff, t_diff) > K6_K5_SHARE * N_RAYS:
+            raise AssertionError("K6 and K5 disagree on mesh_ball")
+    # A poisoned skip table (every link back to the root) terminates: rays
+    # missing the root box miss; rays that enter it cycle to the step cap.
+    bad = copy.copy(tracer)
+    bad.nodes = tracer.nodes.clone()
+    bad.nodes[:, 7] = 0.0
+    n = K6_SUBSET
+    miss = ray_mod.make_rays(torch.full((n, 3), 100.0, device=dev),
+                             torch.tensor([[1.0, 0.0, 0.0]],
+                                          device=dev).expand(n, 3))
+    t0 = time.time()
+    t_m, id_m = bad.trace(miss)
+    t_c, _ = bad.trace(ray_take(coherent, subset))
+    torch.cuda.synchronize()
+    print(f"phase 25 K6 poisoned skip table ({bad.num_nodes} nodes): {n} "
+          f"rays missing the root -> {int(torch.isinf(t_m).sum())} inf, "
+          f"{int((id_m == -1).sum())} id -1; {n} camera rays ended at the "
+          f"cap; {time.time() - t0:.2f} s")
+    if not (bool(torch.isinf(t_m).all()) and bool((id_m == -1).all())
+            and t_c.shape[0] == n):
+        raise AssertionError("a poisoned skip table did not end in misses")
+    return report, launches
+
+
+def phase_mm(dev, smi):
+    """Phase 26, the gather-matmul probe (csrc/mm_probe.cu) on its own
+    path, tools/prof_rounds.py Q2: [1728, 128] x [128, 1024] bf16 at reps
+    100 and 400 against the plain version (bit-equal: every sum is exact
+    on the 1% mask), then Q2's own timings: the probe's ms a launch and a
+    round, its bound, and cuBLAS: one torch.matmul of the operands a round,
+    and the probe's library time, one torch.matmul of the operands stacked
+    `reps` times along k (the same sum of products in one call)."""
+    from pbrs_tpu_torch.tools import prof_rounds as pr
+
+    tab, mask = pr.probe_operands(0, dev)
+    pr.LAUNCHES = 0
+    outs = {reps: pr.mm_probe(tab, mask, reps) for reps in (100, 400)}
+    launches = pr.LAUNCHES
+    report = {"max_abs_err": 0.0}
+    plain = {}
+    for reps, got in outs.items():
+        want = pr.mm_reference(tab, mask, reps)
+        diff = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        err = float((got - want).abs().max())
+        plain[reps] = cuda_ms(lambda: pr.mm_reference(tab, mask, reps), 2)
+        print(f"phase 26 mm probe reps {reps}: elements not bit-equal to the "
+              f"plain version {diff}, max |d| {err:.3g}")
+        if diff:
+            raise AssertionError("the probe disagrees with its plain version")
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+    for row in pr.q2(dev):
+        reps = row["reps"]
+        print(f"phase 26 mm probe reps {reps}: {row['ms']:.4f} ms a launch "
+              f"({row['us_per_round']:.3f} us a round), plain "
+              f"{plain[reps]:.3f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), cuBLAS one round "
+              f"{row['cublas_matmul_us']:.3f} us, k-stacked call "
+              f"{row['cublas_stacked_ms']:.4f} ms [{smi}]")
+        if reps == 100:
+            report.update(ms=row["ms"], plain_ms=plain[reps],
+                          bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                          library_ms=row["cublas_stacked_ms"])
+    return report, launches
+
+
+def phase_options(dev, smi):
+    """Phase 27, the render loop's options on the card: Cornell 256^2,
+    depth 8, 4 spp through render_image with a Gaussian filter, with
+    use_nee=False and with debug_checks (each on the general path through
+    K1, finite, the audit clean); a checkpoint written at sample 4 of 16
+    and resumed equals an uninterrupted film (route auto, K2) bit for bit;
+    the CLI with --checkpoint, --filter and --debug_checks, resumed."""
+    from pbrs_tpu_torch import cli, render
+
+    scene = cornell(256).to(dev)
+    mods = launch_counts()
+    for kw in ({"pixel_filter": ("gaussian", 1.5)}, {"use_nee": False},
+               {"debug_checks": True}):
+        for m in mods.values():
+            m.LAUNCHES = 0
+        img, stats = render.render_image(scene, spp=4, max_depth=DEPTH, **kw)
+        got = {k: m.LAUNCHES for k, m in mods.items() if m.LAUNCHES}
+        print(f"phase 27 Cornell 256^2 {kw}: {stats.integrator}, launches "
+              f"{got}, image mean {float(img.mean()):.5f}, audit "
+              f"{stats.audit}")
+        if (stats.integrator != "general" or not got.get("trace_flat")
+                or not np.isfinite(img).all() or float(img.mean()) <= 0
+                or (stats.audit is not None and sum(stats.audit.values()))):
+            raise AssertionError(f"render_image with {kw} failed")
+    full = render.Film(256, 256)
+    _, stats = render.render_image(scene, spp=16, max_depth=DEPTH, film=full)
+    make = render.make_integrator
+
+    def stop_at_4(*a, **k):
+        name, fn = make(*a, **k)
+
+        def fn4(pix, s):
+            if s == 4:
+                raise KeyboardInterrupt
+            return fn(pix, s)
+        return name, fn4
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "film.npz")
+        render.make_integrator = stop_at_4
+        try:
+            render.render_image(scene, spp=16, max_depth=DEPTH,
+                                checkpoint_path=ckpt)
+            raise AssertionError("the interrupt did not reach the caller")
+        except KeyboardInterrupt:
+            pass
+        finally:
+            render.make_integrator = make
+        film = render.Film.load(ckpt)
+        at = film.samples_done
+        render.render_image(scene, spp=16, max_depth=DEPTH, film=film,
+                            checkpoint_path=ckpt)
+        same = int((film.accum.view(np.int32)
+                    != full.accum.view(np.int32)).sum())
+        print(f"phase 27 checkpoint at sample {at} of 16 ({stats.integrator})"
+              f", resumed: film values not bit-equal to the uninterrupted "
+              f"film {same} of {full.accum.size}")
+        if at != 4 or same or stats.integrator != "fused":
+            raise AssertionError("a resumed film differs from an "
+                                 "uninterrupted one")
+        out = os.path.join(tmp, "c.exr")
+        argv = ["--resolution", "256x256", "--msaa", "2", "--depth", "5",
+                "--filter", "gaussian:1.5", "--checkpoint", ckpt,
+                "--checkpoint_every", "2", "--debug_checks", "--output", out]
+        os.remove(ckpt)
+        lines = []
+        for _ in range(2):
+            said = io.StringIO()
+            with contextlib.redirect_stdout(said):
+                rc = cli.main(argv)
+            lines.append(said.getvalue())
+            if rc:
+                raise AssertionError(f"the CLI exited {rc}")
+        resumed = [ln for ln in lines[1].splitlines() if "resuming" in ln]
+        print(f"phase 27 cli --filter --checkpoint --debug_checks: rc 0, "
+              f"then {resumed}; "
+              f"{[ln for ln in lines[0].splitlines() if 'violation' in ln]}")
+        if not resumed or "debug_checks: 0 violation(s)" not in lines[0]:
+            raise AssertionError("the CLI did not resume from its checkpoint")
+
+
+def phase_accuracy(dev, smi):
+    """Phase 28, the accuracy check of tools/regen_accuracy.py on the card:
+    Cornell 256^2, depth 8, 1024 spp, its camera, route auto (K2); seed 3
+    against out/accuracy/cornell_1024spp_seed2.exr (the JAX package's
+    render) must be below out/accuracy/summary.json's bar; seed 2 (the
+    reference's own seed) is printed as a parity figure."""
+    from pbrs_tpu_torch import render
+    from pbrs_tpu_torch.io import image
+
+    ref = image.read_exr(os.path.join(REPO, "out", "accuracy",
+                                      "cornell_1024spp_seed2.exr"))
+    with open(os.path.join(REPO, "out", "accuracy", "summary.json")) as f:
+        bar = json.load(f)["bar"]
+    scene = cornell(256).to(dev)
+    mse = {}
+    for seed in (3, 2):
+        t0 = time.time()
+        img, stats = render.render_image(scene, spp=1024, max_depth=DEPTH,
+                                         seed=seed)
+        mse[seed] = float(((img - ref) ** 2).mean())
+        print(f"phase 28 accuracy: Cornell 256^2 depth {DEPTH} 1024 spp seed "
+              f"{seed} via {stats.integrator}: MSE vs the JAX package's "
+              f"seed-2 render {mse[seed]:.4e} (bar {bar}); "
+              f"{time.time() - t0:.1f} s [{smi}]")
+        if stats.integrator != "fused" or not np.isfinite(img).all():
+            raise AssertionError("the accuracy render did not take K2")
+    if not mse[3] < bar:
+        raise AssertionError(f"MSE {mse[3]} is not below {bar}")
+
+
 def kernel_entry(name, source, replaces, launches, report):
     return {"name": name, "route": "cuda",
             "source": f"pbrs_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches, "max_abs_err": report["max_abs_err"],
             "ms": report["ms"], "plain_ms": report["plain_ms"],
             "bound_ms": report["bound_ms"], "bound_by": report["bound_by"],
-            # No single PyTorch call computes any of these kernels (nor a
-            # BVH closest hit).
-            "library_ms": None}
+            # No single PyTorch call computes a bounce or a BVH closest
+            # hit; the probe's is a matmul (phase 26).
+            "library_ms": report.get("library_ms")}
 
 
 def main():
@@ -1825,6 +2186,10 @@ def main():
     k4_folded = run(phase_wave, dev, seen, nee_mode="folded", phase=23)
     del seen
     run(phase_direct, dev, smi)
+    k6, k6_launches = run(phase_k6, dev, smi, rng)
+    mm, mm_launches = run(phase_mm, dev, smi)
+    run(phase_options, dev, smi)
+    run(phase_accuracy, dev, smi)
     k2_src = "pbrs_tpu/accel/fused_kernel.py:329"
     k3_src = "pbrs_tpu/accel/fused_single_lobe.py:506"
     k4_src = "pbrs_tpu/accel/fused_wave.py:158"
@@ -1849,6 +2214,10 @@ def main():
                      sobol_launches["fused_wave"], k4_sobol),
         kernel_entry("fused_wave_folded", "fused_wave.cu", k4_src,
                      folded_launches, k4_folded),
+        kernel_entry("trace_prim_bvh", "trace_prim_bvh.cu",
+                     "pbrs_tpu/accel/mesh_pallas.py:113", k6_launches, k6),
+        kernel_entry("mm_probe", "mm_probe.cu", "tools/_prof_rounds.py:72",
+                     mm_launches, mm),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

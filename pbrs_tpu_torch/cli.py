@@ -5,6 +5,12 @@ far; any other flag or preset exits with "not yet ported".
         --depth 5 --resolution 256x256 --output cornell.exr
     python -m pbrs_tpu_torch.cli --pbrt_file scenes/interior/interior.pbrt
     python -m pbrs_tpu_torch.cli --sampler sobol --integrator direct
+    python -m pbrs_tpu_torch.cli --filter gaussian:1.5 \
+        --checkpoint film.npz --checkpoint_every 4
+
+--use_single_thread / --use_multi_thread are accepted and ignored, as the
+reference does (determinism comes from the counter-based sampler, not the
+thread count).
 """
 
 from __future__ import annotations
@@ -40,11 +46,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "wavefront")
     p.add_argument("--resolution", default=None, metavar="WxH",
                    help="override the scene camera resolution")
+    p.add_argument("--filter", default=None, metavar="KIND:RADIUS",
+                   help="pixel reconstruction filter, e.g. gaussian:1.5 "
+                        "(applied by filter importance sampling)")
     p.add_argument("--output", default=None, help="output EXR/PNG path")
+    p.add_argument("--checkpoint", default=None,
+                   help="film checkpoint path (.npz); resumes if it exists")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="save the film every N samples")
     p.add_argument("--visualize_normals", action="store_true",
                    help="also write <scene>-normals.png (1 spp)")
     p.add_argument("--visualize_materials", action="store_true",
                    help="also write <scene>-mtl.png (1 spp)")
+    p.add_argument("--use_single_thread", action="store_true")
+    p.add_argument("--use_multi_thread", action="store_true")
+    p.add_argument("--debug_checks", action="store_true",
+                   help="count per-bounce invariant violations (NaN "
+                        "radiance/throughput, non-unit normals/frames, hit "
+                        "t out of range, invalid pdfs) and print the table; "
+                        "exits non-zero on violations. Path integrator, "
+                        "general path.")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "path without kernels)")
@@ -101,22 +122,42 @@ def main(argv=None) -> int:
             io_image.write_png(f"{name}-{suffix}.png", img)
             print(f"wrote {name}-{suffix}.png")
 
+    film = None
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        film = render_mod.Film.load(args.checkpoint)
+        print(f"resuming from {args.checkpoint} at {film.samples_done} "
+              "samples")
+    pixel_filter = None
+    if args.filter:
+        kind, _, radius = args.filter.partition(":")
+        pixel_filter = (kind, float(radius or 1.0))
+
     t0 = time.time()
     img, stats = render_mod.render_image(
         scene, spp=spp, max_depth=args.depth, integrator=args.integrator,
         seed=args.seed, progress=True, device=device,
-        sampler_kind=args.sampler)
+        sampler_kind=args.sampler, film=film,
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every, pixel_filter=pixel_filter,
+        debug_checks=args.debug_checks)
     wall = time.time() - t0
     mrays = stats.traced_rays / max(stats.wall_time, 1e-9) / 1e6
     print(f"whole render time = {wall:.2f}s ({mrays:.1f} Mrays/s, "
           f"{stats.integrator} path on {device})")
+    rc = 0
+    if args.debug_checks:
+        from .integrators import debug_audit
+
+        print(debug_audit.format_report(stats.audit))
+        if sum(stats.audit.values()):
+            rc = 2  # the image is still written, for inspection
     out = args.output or f"{name}-{args.integrator}-{spp}spp.exr"
     if out.endswith(".png"):
         io_image.write_png(out, img)
     else:
         io_image.write_exr(out, img)
     print(f"Image written to {out}")
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

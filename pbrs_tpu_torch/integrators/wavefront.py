@@ -1,8 +1,8 @@
 """Wavefront path integrator (the general path). Mirrors
-pbrs_tpu/integrators/wavefront.py: camera rays without a pixel filter, the
-masked ``path_radiance`` loop with two-arm or folded NEE and
-``render_samples`` (filters, compaction and the audit are not ported
-yet).
+pbrs_tpu/integrators/wavefront.py: camera rays with filter importance
+sampling, the masked ``path_radiance`` loop with two-arm or folded NEE or
+BSDF sampling alone (``use_nee=False``) and the ``--debug_checks`` audit,
+and ``render_samples`` (compaction is not ported yet).
 
 Every bounce runs intersect -> shading (textures overlaid) -> emission on
 camera and post-delta segments -> NEE -> BSDF sample -> Russian roulette
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..bxdf import bsdf as bsdf_mod
+from ..core import filters as flt
 from ..core import sampler as smp
 from ..core import vecmath as vm
 from ..geometry import camera as cam_mod
@@ -23,15 +24,37 @@ from ..geometry import ray as ray_mod
 from ..lights import env_sampling as es
 from ..lights import lights as lt
 from ..materials import table as mat_mod
+from . import debug_audit as aud_mod
 from . import nee
 
 
-def camera_rays(scene, sampler, pixel_idx, sample_idx, msaa):
-    """Camera ray batch with stratified per-sample jitter (box filter)."""
+def camera_rays(scene, sampler, pixel_idx, sample_idx, msaa,
+                filter_table=None):
+    """Camera ray batch with stratified per-sample jitter, warped through
+    a reconstruction filter's inverse CDF when one is given."""
+    rays, _ = camera_rays_weighted(scene, sampler, pixel_idx, sample_idx,
+                                   msaa, filter_table)
+    return rays
+
+
+def camera_rays_weighted(scene, sampler, pixel_idx, sample_idx, msaa,
+                         filter_table=None):
+    """(rays, weight): weight is None without a filter or for a
+    non-negative one, else each sample's signed filter weight [N]
+    (weighted filter importance sampling, core/filters.py)."""
     row, col = cam_mod.pixel_coords(scene.camera, pixel_idx)
     dx, dy = smp.stratified_jitter(sampler, pixel_idx, sample_idx, msaa)
-    return cam_mod.shoot_rays(scene.camera, row, col,
+    weight = None
+    if filter_table is not None:
+        ox, wx = flt.sample_filter_offset(filter_table, dx)
+        oy, wy = flt.sample_filter_offset(filter_table, dy)
+        dx = 0.5 + ox
+        dy = 0.5 + oy
+        if wx is not None:
+            weight = wx * wy
+    rays = cam_mod.shoot_rays(scene.camera, row, col,
                               torch.stack([dx, dy], dim=-1))
+    return rays, weight
 
 
 def morton_pixel_order(width, height):
@@ -85,12 +108,18 @@ def _make_env_evaluator(scene, folded):
 
 
 def path_radiance(scene, rays, sampler, pixel_idx, sample_idx, intersect_fn,
-                  occlude_fn, max_depth=5, rr_start=3, nee_mode="twoarm"):
+                  occlude_fn, max_depth=5, rr_start=3, nee_mode="twoarm",
+                  use_nee=True, audit=False):
     """(radiance [N,3], traced-ray count) along camera rays: closest hit,
     emission on camera segments, one-light NEE with MIS, BSDF sampling,
     Russian roulette after `rr_start`. The count (an int64 scalar) is the
     rays with a live extent at each closest hit plus one shadow ray per
     alive lane for each shadow batch.
+
+    use_nee=False is the brute-force estimator (validation): no NEE,
+    emission counted on every segment; it converges to the NEE image.
+    audit=True adds a third result, the [K] violation counts of
+    debug_audit.py summed over the bounces.
 
     nee_mode "twoarm" traces a shadow ray for each MIS arm; "folded" shares
     the path's own BSDF sample with the BSDF arm and resolves its
@@ -100,7 +129,7 @@ def path_radiance(scene, rays, sampler, pixel_idx, sample_idx, intersect_fn,
     last bounce's."""
     n = rays.origin.shape[0]
     dev = rays.origin.device
-    folded = nee_mode == "folded" and scene.num_lights > 0
+    folded = nee_mode == "folded" and use_nee and scene.num_lights > 0
     env_eval = _make_env_evaluator(scene, folded)
     radiance = torch.zeros(n, 3, device=dev)
     beta = torch.ones(n, 3, device=dev)
@@ -108,8 +137,10 @@ def path_radiance(scene, rays, sampler, pixel_idx, sample_idx, intersect_fn,
     specular = torch.zeros(n, dtype=torch.bool, device=dev)
     ray_count = torch.zeros((), dtype=torch.int64, device=dev)
     pend = None
+    counts = aud_mod.zero_counts(dev) if audit else None
 
     for bounce in range(max_depth):
+        alive_in, in_rays = alive, rays
         ray_count = ray_count + (rays.t_max > 0.0).sum()
         hit = intersect_fn(rays)
         lobes, emit = mat_mod.shading_at(scene.materials, scene.textures,
@@ -117,7 +148,8 @@ def path_radiance(scene, rays, sampler, pixel_idx, sample_idx, intersect_fn,
         # Emission counts on camera segments and after delta bounces.
         env, p_env = env_eval(rays.dir)
         direct_seen = torch.where(hit.hit[..., None], emit, env)
-        count_emission = alive & ((bounce == 0) | specular)
+        count_emission = (alive & ((bounce == 0) | specular) if use_nee
+                          else alive)
         radiance = radiance + torch.where(count_emission[..., None],
                                           beta * direct_seen, 0.0)
         if pend is not None:
@@ -129,7 +161,7 @@ def path_radiance(scene, rays, sampler, pixel_idx, sample_idx, intersect_fn,
         f, wi, pdf, is_delta = bsdf_mod.sample_bsdf(lobes, frame, hit.wo,
                                                     u_bsdf)
 
-        if scene.num_lights > 0:
+        if use_nee and scene.num_lights > 0:
             u_sel = sampler.u1(pixel_idx, sample_idx, bounce,
                                smp.DIM_LIGHT_SELECT)
             u_light = sampler.u2(pixel_idx, sample_idx, bounce,
@@ -183,6 +215,10 @@ def path_radiance(scene, rays, sampler, pixel_idx, sample_idx, intersect_fn,
         if folded:
             t_dead = _owed_extent(pend, rays.t_max)
         rays = rays.replace(t_max=torch.where(alive, rays.t_max, t_dead))
+        if audit:
+            counts = counts + aud_mod.audit_bounce(
+                in_rays, hit, frame, radiance, beta, f, wi, pdf, alive_in,
+                lobes=lobes, emit=emit)
 
     if folded:
         # Epilogue: one closest hit bounded to what is owed resolves the
@@ -192,6 +228,8 @@ def path_radiance(scene, rays, sampler, pixel_idx, sample_idx, intersect_fn,
         hit = intersect_fn(rays)
         env, p_env = env_eval(rays.dir)
         radiance = radiance + _resolve_pending(pend, hit, env, p_env)
+    if audit:
+        return radiance, ray_count, counts
     return radiance, ray_count
 
 
@@ -205,10 +243,17 @@ def _owed_extent(pend, t_max):
 
 
 def render_samples(scene, sampler, pixel_idx, sample_idx, intersect_fn,
-                   occlude_fn, max_depth=5, msaa=2, nee_mode="twoarm"):
+                   occlude_fn, max_depth=5, msaa=2, nee_mode="twoarm",
+                   use_nee=True, filter_table=None, audit=False):
     """Camera rays + path integration for a (pixel, sample) batch:
-    (radiance [N,3], traced-ray count)."""
-    rays = camera_rays(scene, sampler, pixel_idx, sample_idx, msaa)
-    return path_radiance(scene, rays, sampler, pixel_idx, sample_idx,
-                         intersect_fn, occlude_fn, max_depth=max_depth,
-                         nee_mode=nee_mode)
+    (radiance [N,3], traced-ray count), plus the audit counts with
+    audit=True. A weighted filter scales each sample's radiance by its
+    signed filter weight."""
+    rays, weight = camera_rays_weighted(scene, sampler, pixel_idx,
+                                        sample_idx, msaa, filter_table)
+    out = path_radiance(scene, rays, sampler, pixel_idx, sample_idx,
+                        intersect_fn, occlude_fn, max_depth=max_depth,
+                        nee_mode=nee_mode, use_nee=use_nee, audit=audit)
+    if weight is None:
+        return out
+    return (out[0] * weight[..., None],) + tuple(out[1:])

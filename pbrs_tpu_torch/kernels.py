@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("trace_flat.cu", "fused_bounce.cu", "fused_single_lobe.cu",
-           "trace_bvh.cu", "fused_wave.cu")
+           "trace_bvh.cu", "fused_wave.cu", "trace_prim_bvh.cu",
+           "mm_probe.cu")
 HEADERS = ("trace_flat.cuh", "bounce_common.cuh", "shade_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "pbrs_tpu_torch_kernels"
@@ -50,6 +51,9 @@ _SIGNATURES = {
     "pbrs_fused_wave": [_VP, _I, _I, _I, _VP, _I, _VP, _I, _F, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _VP, _I, _VP, _VP, _I, _VP,
                         _VP, _VP, _VP],
+    "pbrs_trace_prim_bvh": [_VP, _I, _VP, _VP, _I, _VP, _I, _VP, _VP, _I,
+                            _VP],
+    "pbrs_mm_probe": [_VP, _VP, _I, _I, _I, _VP, _VP],
     "pbrs_error_string": [_I],
     "pbrs_max_bank_rows": [],
     "pbrs_bvh_max_stack": [],

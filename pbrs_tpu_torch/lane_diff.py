@@ -1,4 +1,4 @@
-"""Where the wave path and the general path part, lane by lane.
+"""Where a fast path and the general path part, lane by lane.
 
     python -m pbrs_tpu_torch.lane_diff \\
         --pbrt_file scenes/interior/interior.pbrt --resolution 1024x1024 \\
@@ -6,10 +6,14 @@
     python -m pbrs_tpu_torch.lane_diff \\
         --pbrt_file scenes/interior/interior.pbrt --resolution 1024x1024 \\
         --depth 5 --device cpu --pixels chiprun_out/interior_lanes.json
+    python -m pbrs_tpu_torch.lane_diff --route fused --scene_name plates \\
+        --resolution 1024x1024 --depth 5 --out plates_lanes.json
 
-Renders sample 0 (PCG seed 0, two-arm NEE) of a wave-eligible scene
-through the wave path (K4) and the general path on one device, on the same
-random streams, and finds the lanes outside atol 3e-5, rtol 2e-4
+Renders sample 0 (PCG seed 0, two-arm NEE) of a scene through a fast path
+-- the wave path (K4, `--route wave`) or the fused bounce kernel of route
+auto (K2, else K3, `--route fused`) -- and the general path on one device,
+on the same random streams, and finds the lanes outside atol 3e-5, rtol
+2e-4
 (``_Paths`` also takes the Sobol' sampler and folded NEE, as
 chip_smoke.py's phases 18 and 22 use it). With --pixels it takes
 the lanes of an earlier run's JSON instead, e.g. to render on the CPU the
@@ -34,6 +38,14 @@ names for each lane the bounce at which the two paths part and how:
   test -- pdf > 0, radiance > 0, the side of a surface -- went the other
   way);
 - "value": the same, within FLIP_TOL (arithmetic on the same terms).
+
+The fused kernels trace inside the kernel, so on `--route fused` only each
+bounce's incoming ray and whether the lane is live are logged: "branch"
+and "drift" as above, "alive" where the lane is live on one path only (a
+hit-or-miss at an edge, or a step or roulette test); where the ray and
+liveness agree and the bounce's radiance differs, "arm flip" or "value"
+as above from the bounce's contribution alone (the kernel's shadow queries
+are not seen).
 
 Writes one JSON file (--out) and prints a summary line per class. Runs on
 the card unless --device says otherwise.
@@ -72,27 +84,64 @@ def _keep_occ(occ):
 
 
 class _Paths:
-    """The wave path and the general path of a scene, each with its tracer
+    """A fast path ("wave": K4; "fused": K2 where the scene takes it, else
+    K3) and the general path of a scene, each with its tracer or tables
     built once, on one sampler (seed 0 of "pcg", "sobol") and NEE mode."""
 
-    def __init__(self, scene, sampler="pcg", nee_mode="twoarm"):
+    def __init__(self, scene, sampler="pcg", nee_mode="twoarm",
+                 fast="wave"):
         from .accel import dispatch
+        from .accel import fused_kernel as fk
+        from .accel import fused_single_lobe as fsl
         from .accel import fused_wave as fw
         from .render import SAMPLERS
 
         self.scene = scene
         self.sampler = SAMPLERS[sampler](0)
         self.nee_mode = nee_mode
-        self.wave = fw.FusedWaveIntegrator(scene,
-                                           folded=nee_mode == "folded")
-        self.fns = {"wave": (self.wave.intersect_fn, self.wave.occlude_fn),
-                    "general": dispatch.make_trace_fns(scene, True)}
+        self.fast = fast
+        self.fns = {"general": dispatch.make_trace_fns(scene, True)}
+        if fast == "wave":
+            self.wave = fw.FusedWaveIntegrator(scene,
+                                               folded=nee_mode == "folded")
+            self.fns["wave"] = (self.wave.intersect_fn, self.wave.occlude_fn)
+        elif fk.scene_supports_fused(scene):
+            self.fused, self.fused_mod = fk.FusedDiffuseIntegrator(scene), fk
+            self.bounce_fn = "bounce"
+        elif fsl.scene_supports_single_lobe(scene):
+            self.fused = fsl.FusedSingleLobeIntegrator(scene)
+            self.fused_mod, self.bounce_fn = fsl, "bounce2"
+        else:
+            raise ValueError("the scene takes neither fused bounce kernel")
+
+    def _render_fused(self, pix, depth, msaa, log):
+        """The fused path; with a log (a list), each bounce's incoming (ray
+        direction, live) goes to it, on the host."""
+        mod, name = self.fused_mod, self.bounce_fn
+        launch = getattr(mod, name)
+
+        def logged(tables, fin, alive, *a, **k):
+            if log is not None:
+                log.append((fin[3:6].T.cpu(), (alive > 0).cpu()))
+            return launch(tables, fin, alive, *a, **k)
+        setattr(mod, name, logged)
+        try:
+            rad, _ = self.fused.render_samples(self.sampler, pix, 0,
+                                               max_depth=depth, msaa=msaa)
+        finally:
+            setattr(mod, name, launch)
+        return rad
 
     def render(self, path, pix, depth, msaa, log=False):
-        """(radiance [N,3], closest-hit log, occlusion log) of one path."""
+        """(radiance [N,3], closest-hit log, occlusion log) of one path;
+        the fused path's closest-hit log holds its bounces' (direction,
+        live) and it has no occlusion log."""
         from .integrators import wavefront
 
         hits, occl = [], []
+        if path == "fused":
+            rad = self._render_fused(pix, depth, msaa, hits if log else None)
+            return rad, hits, occl
         isect, occ = self.fns[path]
         if log:
             isect = _logged(isect, hits, _keep_hit)
@@ -169,28 +218,58 @@ def _nee_cause(arms_w, arms_g, i, inc_w, inc_g):
     return "value"
 
 
+def _fused_cause(log_f, log_g, i, b):
+    """How the fused and the general path part at bounce b on lane i, from
+    the bounce's incoming ray on both: (how, detail) or None where they
+    agree on the ray and on whether the lane is live."""
+    (df, lf), (dg, tg, _) = log_f[b], log_g[b]
+    live_f, live_g = bool(lf[i]), bool(tg[i] > 0)
+    if live_f != live_g:
+        return "alive", {"live": [live_f, live_g]}
+    dd = float((_unit(df[i]) - _unit(dg[i])).abs().max())
+    if live_f and dd > DIR_TOL:
+        return ("branch" if dd > BRANCH_TOL else "drift"), {"dir_diff": dd}
+    return None
+
+
 def classify(scene, pix, depth, msaa, paths=None):
     """Per lane of pix: the bounce where the paths part and how, with the
     radiance of both at every depth and the materials each path hit.
-    `paths` (a _Paths) sets the sampler and NEE mode: PCG two-arm by
-    default."""
+    `paths` (a _Paths) sets the fast path, the sampler and the NEE mode:
+    the wave path, PCG, two-arm by default."""
     paths = paths or _Paths(scene)
+    fast = paths.fast
     cum = {p: [paths.render(p, pix, d, msaa)[0].cpu()
-               for d in range(1, depth + 1)] for p in ("wave", "general")}
+               for d in range(1, depth + 1)] for p in (fast, "general")}
     logs = {}
-    for p in ("wave", "general"):
+    for p in (fast, "general"):
         rad, hits, occl = paths.render(p, pix, depth, msaa, log=True)
         logs[p] = (rad.cpu(), hits, occl)
     perlin = perlin_materials(scene).cpu()
     n = pix.shape[0]
-    sh = {p: _shadows(logs[p][2], n, depth) for p in logs}
+    sh = ({p: _shadows(logs[p][2], n, depth) for p in logs}
+          if fast == "wave" else None)
     lanes = []
     for i in range(n):
         rad_part = next((b for b in range(depth) if not torch.isclose(
-            cum["wave"][b][i], cum["general"][b][i], atol=ATOL,
+            cum[fast][b][i], cum["general"][b][i], atol=ATOL,
             rtol=RTOL).all()), None)
         how, at, detail = "same", None, {}
-        for b in range(depth):
+        for b in range(depth if fast == "fused" else 0):
+            cause = _fused_cause(logs["fused"][1], logs["general"][1], i, b)
+            if cause is not None:
+                (how, detail), at = cause, b
+                break
+            if b == rad_part:
+                inc = [cum[p][b][i] - (cum[p][b - 1][i] if b else 0.0)
+                       for p in ("fused", "general")]
+                scale = max(float(inc[0].abs().max()),
+                            float(inc[1].abs().max()), 1e-30)
+                flip = float((inc[0] - inc[1]).abs().max()) > FLIP_TOL * scale
+                how, at = ("arm flip" if flip else "value"), b
+                detail = {"increment": [[float(x) for x in v] for v in inc]}
+                break
+        for b in range(depth if fast == "wave" else 0):
             (dw, tw, (hw, mw, sw)) = logs["wave"][1][b]
             (dg, tg, (hg, mg, sg)) = logs["general"][1][b]
             live = bool(tw[i] > 0) or bool(tg[i] > 0)
@@ -214,8 +293,11 @@ def classify(scene, pix, depth, msaa, paths=None):
                 detail = {"arms": [_arm(aw, ag, i) for aw, ag in
                                    zip(sh["wave"][b], sh["general"][b])]}
                 break
+        # The materials each path hit (the fused kernels log none).
         mats = [[int(h[1][i]) if bool(h[0][i]) and bool(t[i] > 0) else -1
-                 for _, t, h in logs[p][1]] for p in ("wave", "general")]
+                 for _, t, h in logs[p][1]]
+                for p in (("wave", "general") if fast == "wave"
+                          else ("general",))]
         w = scene.camera.width
         p = int(pix[i])
         lanes.append({
@@ -224,9 +306,9 @@ def classify(scene, pix, depth, msaa, paths=None):
             else rad_part + 1,
             "how": how, "detail": detail, "materials_hit": mats,
             "perlin": any(m >= 0 and bool(perlin[m]) for m in sum(mats, [])),
-            "wave": [float(x) for x in logs["wave"][0][i]],
+            fast: [float(x) for x in logs[fast][0][i]],
             "general": [float(x) for x in logs["general"][0][i]],
-            "max_abs_d": float((logs["wave"][0][i]
+            "max_abs_d": float((logs[fast][0][i]
                                 - logs["general"][0][i]).abs().max())})
     return lanes
 
@@ -242,6 +324,10 @@ def summary(lanes):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="pbrs_tpu_torch.lane_diff")
+    p.add_argument("--route", default="wave", choices=["wave", "fused"],
+                   help="the fast path held against the general path: the "
+                        "wave path (K4) or route auto's fused bounce "
+                        "kernel (K2, else K3)")
     p.add_argument("--scene_name", default="everything")
     p.add_argument("--pbrt_file", default=None)
     p.add_argument("--resolution", default="1024x1024", metavar="WxH")
@@ -267,8 +353,9 @@ def main(argv=None) -> int:
         scene, label = presets.PRESETS[args.scene_name](), args.scene_name
     scene = with_resolution(scene, w, h).to(args.device)
     dev = scene.device
-    paths = _Paths(scene)
-    report = {"scene": label, "resolution": args.resolution,
+    paths = _Paths(scene, fast=args.route)
+    fast = args.route
+    report = {"scene": label, "route": fast, "resolution": args.resolution,
               "depth": args.depth, "msaa": args.msaa, "device": args.device,
               "atol": ATOL, "rtol": RTOL}
     if args.device.startswith("cuda"):
@@ -281,11 +368,11 @@ def main(argv=None) -> int:
     else:
         pix = torch.arange(w * h, dtype=torch.int32, device=dev)
         full = {path: paths.render(path, pix, args.depth, args.msaa)[0]
-                for path in ("wave", "general")}
-        outside = ~torch.isclose(full["wave"], full["general"], atol=ATOL,
+                for path in (fast, "general")}
+        outside = ~torch.isclose(full[fast], full["general"], atol=ATOL,
                                  rtol=RTOL).all(dim=1)
         report.update(lanes_total=w * h, outside=int(outside.sum()),
-                      max_abs_d=float((full["wave"] - full["general"])
+                      max_abs_d=float((full[fast] - full["general"])
                                       .abs().max()))
         pix = pix[outside]
     lanes = (classify(scene, pix, args.depth, args.msaa, paths)
@@ -295,8 +382,8 @@ def main(argv=None) -> int:
         sub = torch.nonzero(outside).flatten()
         for ln, i in zip(lanes, sub.tolist()):
             ln["reproduced"] = bool(
-                (torch.tensor(ln["wave"], device=dev)
-                 == full["wave"][i]).all()
+                (torch.tensor(ln[fast], device=dev)
+                 == full[fast][i]).all()
                 and (torch.tensor(ln["general"], device=dev)
                      == full["general"][i]).all())
     report["classes"] = dict(Counter(ln["how"] for ln in lanes))

@@ -19,6 +19,7 @@ from pbrs_tpu_torch.geometry import ray as tray
 from pbrs_tpu_torch.scene import presets
 from pbrs_tpu_torch.shapes import tables as ttables
 from test_partition import _mixed_scene, _rays as _partition_rays
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 
 def _mesh(levels):

@@ -14,6 +14,7 @@ from pbrs_tpu_torch.bxdf import bsdf as tbsdf
 from pbrs_tpu_torch.bxdf import fresnel as tfr
 from pbrs_tpu_torch.bxdf import lobes as tlb
 from pbrs_tpu_torch.bxdf import microfacet as tmf
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 N = 512
 # Elementwise float32 formulas on both sides; XLA's CPU transcendentals

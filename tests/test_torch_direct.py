@@ -18,6 +18,7 @@ from pbrs_tpu_torch.integrators import wavefront as twf
 from pbrs_tpu_torch.io import image
 from test_fused_single_lobe import _shrunk
 from test_torch_wave import _carry
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 ATOL, RTOL = 3e-5, 2e-4
 SIZE = 16

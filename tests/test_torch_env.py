@@ -19,6 +19,7 @@ from pbrs_tpu.lights import lights as jlt
 from pbrs_tpu_torch.io import image as io_image
 from pbrs_tpu_torch.lights import env_sampling as es
 from pbrs_tpu_torch.lights import lights as lt
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Directions come from sin / cos / atan2 / acos, which PyTorch's and XLA's

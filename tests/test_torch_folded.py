@@ -29,6 +29,7 @@ from test_fused_single_lobe import _shrunk
 from test_fused_wave import _center_pix
 from test_torch_sobol_kernels import SIZE, compare_planes, record_shade
 from test_torch_wave import _carry
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 ATOL, RTOL = 3e-5, 2e-4  # tests/test_fused_wave.py:127-146
 

@@ -18,6 +18,7 @@ from pbrs_tpu_torch.core import sampler as tsmp
 from pbrs_tpu_torch.geometry import camera as tcam
 from pbrs_tpu_torch.integrators import wavefront as twf
 from pbrs_tpu_torch.scene import presets
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 SIZE = 24
 ATOL, RTOL = 2e-5, 1e-4  # tests/test_fused.py:38

@@ -24,6 +24,7 @@ from pbrs_tpu_torch.scene import buffers
 
 from test_torch_fused import ATOL, ORIGIN_ATOL, RTOL, _pallas_bounce
 from test_torch_scene import jax_arrays
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 SIZE = 16
 

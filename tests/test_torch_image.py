@@ -15,6 +15,7 @@ from PIL import Image
 from pbrs_tpu.textures import textures as jtex
 from pbrs_tpu_torch.io import image as io_image
 from pbrs_tpu_torch.textures import textures as ttex
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PNGS = ("env_window.png", "wood.png")

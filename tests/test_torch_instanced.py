@@ -22,6 +22,7 @@ from pbrs_tpu_torch.geometry import transform as tf
 from pbrs_tpu_torch.scene.buffers import SceneBuilder, scene_to_arrays
 from pbrs_tpu_torch.scene.pbrt import loader
 from pbrs_tpu_torch.shapes.tables import GeometryBuilder
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 ATOL = 1e-4  # tests/test_instanced.py:55
 

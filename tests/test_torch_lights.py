@@ -17,6 +17,7 @@ from pbrs_tpu_torch.lights import sample_shape as tss
 from pbrs_tpu_torch.textures import textures as ttex
 from test_fused_single_lobe import _shaped_lights_scene, _shrunk
 from test_torch_single_lobe import compare_with_general
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 N = 512
 # Elementwise float32 on both sides; XLA's and PyTorch's libm (sin, cos,

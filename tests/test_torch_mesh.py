@@ -29,6 +29,7 @@ from pbrs_tpu_torch.geometry import transform as ttf
 from pbrs_tpu_torch.scene import buffers, ply, presets, subdivision
 from pbrs_tpu_torch.shapes import tables as ttables
 from test_torch_scene import _assert_same, jax_arrays
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_checksums.json")
 REL_TOL = 2e-3  # tests/test_golden.py

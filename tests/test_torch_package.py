@@ -17,6 +17,7 @@ from pbrs_tpu_torch.accel import fused_wave as fw
 from pbrs_tpu_torch.accel import trace_kernel as tk
 from pbrs_tpu_torch.accel import treelet as tl
 from pbrs_tpu_torch.geometry import ray as ray_mod
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 PKG = os.path.dirname(pbrs_tpu_torch.__file__)
 REPO = os.path.dirname(PKG)

@@ -30,6 +30,7 @@ from pbrs_tpu_torch.scene import buffers
 from pbrs_tpu_torch.scene import ply as ply_mod
 from pbrs_tpu_torch.scene.pbrt import loader, parser, tokenizer
 from test_pbrt import CORNELL_PBRT, _write_binary_ply
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INTERIOR = os.path.join(REPO, "scenes", "interior", "interior.pbrt")

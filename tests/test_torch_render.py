@@ -16,6 +16,7 @@ from pbrs_tpu_torch import cli, render
 from pbrs_tpu_torch.core import sampler as tsmp
 from pbrs_tpu_torch.io import image
 from pbrs_tpu_torch.scene import presets
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_checksums.json")
 REL_TOL = 2e-3  # tests/test_golden.py
@@ -74,9 +75,10 @@ def test_cli_writes_exr(tmp_path, capsys):
     assert "plain path on cpu" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--checkpoint", "film.npz"],
+@pytest.mark.parametrize("argv", [["--compact", "on"],
                                   ["--scene_name", "fourier_plastic"],
-                                  ["--filter", "gaussian:1.5"]])
+                                  ["--profile_dir", "prof"],
+                                  ["--trace_mode", "rowdense"]])
 def test_cli_refuses_unported(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(argv)
@@ -107,7 +109,8 @@ def test_card_is_the_default(monkeypatch):
 def test_unported_integrator_and_route_raise():
     """Every integrator, sampler and NEE mode of pbrs_tpu is ported; an
     unknown one, an unknown route, and the options still unported
-    (checkpoints, pixel filters) are refused."""
+    (compaction, the profiler trace, the treelet trace modes) are
+    refused."""
     scene = cli.with_resolution(presets.cornell_box(), 8, 8)
     for kw, what in (({"integrator": "bdpt"}, "integrator"),
                      ({"route": "fast"}, "route"),
@@ -115,7 +118,7 @@ def test_unported_integrator_and_route_raise():
                      ({"nee_mode": "onearm"}, "nee_mode")):
         with pytest.raises(ValueError, match=what):
             render.render_image(scene, device="cpu", **kw)
-    for kw in ({"checkpoint_path": "film.npz"},
-               {"pixel_filter": ("gaussian", 1.5)}):
+    for kw in ({"compact": True}, {"profile_dir": "prof"},
+               {"trace_mode": "rowdense"}):
         with pytest.raises(TypeError):
             render.render_image(scene, device="cpu", **kw)

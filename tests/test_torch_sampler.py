@@ -9,6 +9,7 @@ import torch
 from pbrs_tpu.accel import fused_kernel as jfk
 from pbrs_tpu.core import sampler as jsmp
 from pbrs_tpu_torch.core import sampler as tsmp
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 SEEDS = (0, 7, 2**31 + 5, 2**32 - 1)
 

@@ -18,6 +18,7 @@ from pbrs_tpu_torch.geometry import camera as tcam
 from pbrs_tpu_torch.integrators import wavefront as twf
 from pbrs_tpu_torch.scene import buffers, presets
 from pbrs_tpu_torch.shapes.tables import GeometryBuilder
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 
 def jax_arrays(scene):

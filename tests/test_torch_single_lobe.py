@@ -21,6 +21,7 @@ from pbrs_tpu_torch.core import sampler as tsmp
 from pbrs_tpu_torch.scene import buffers, presets
 from test_fused_single_lobe import (_plastic_scene, _shaped_lights_scene,
                                     _shrunk, _textured_scene, _zoo_scene)
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 ATOL, RTOL = 3e-5, 2e-4  # tests/test_fused_single_lobe.py:73,85
 # One float32 ulp at alpha ~ 0.01-1: the port computes roughness_to_alpha

@@ -7,6 +7,7 @@ import pytest
 
 from test_fused_single_lobe import _plastic_scene, _textured_scene
 from test_torch_single_lobe import compare_with_general
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 
 @pytest.mark.parametrize("make", [_plastic_scene, _textured_scene],

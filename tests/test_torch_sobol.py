@@ -22,6 +22,7 @@ from pbrs_tpu_torch.geometry import camera as tcam
 from pbrs_tpu_torch.scene import presets
 from test_torch_fused import ATOL, RTOL, VIEW
 from test_torch_sampler import SEEDS, _counters, _j, _t
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 
 @pytest.mark.parametrize("seed", SEEDS)

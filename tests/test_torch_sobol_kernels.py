@@ -20,6 +20,7 @@ from test_fused_single_lobe import _zoo_scene as _single_lobe_zoo
 from test_fused_wave import _zoo_scene
 from test_torch_single_lobe import carried
 from test_torch_wave import SIDE_PLANES, _carry, _pallas_planes
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 ATOL, RTOL = 3e-5, 2e-4  # tests/test_fused_single_lobe.py:272, test_fused_wave.py:212
 SIZE, DEPTH = 16, 3

@@ -16,6 +16,7 @@ from pbrs_tpu_torch.geometry import ray as tray
 from pbrs_tpu_torch.scene import presets
 from pbrs_tpu_torch.shapes import intersect as tim
 from pbrs_tpu_torch.shapes import tables as ttables
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 
 def _four_family(builder_cls, seed=4):

@@ -25,6 +25,7 @@ from pbrs_tpu_torch.core import sampler as tsmp
 from pbrs_tpu_torch.scene import buffers, presets
 from test_fused_single_lobe import _shrunk
 from test_fused_wave import _zoo_scene
+import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 ATOL, RTOL = 3e-5, 2e-4  # tests/test_fused_wave.py:84-100
 SIZE, DEPTH = 16, 3
