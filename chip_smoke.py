@@ -1237,19 +1237,52 @@ def k4_compare(tab, fin, iin, kw):
             "live": int((iin[2] > 0).sum()), "lanes": fin.shape[1]}
 
 
+def ptxas_spills(function):
+    """(stack frame, spill store, spill load) bytes ptxas reported for the
+    kernel whose mangled name holds `function` (phase 1's log)."""
+    from pbrs_tpu_torch import kernels
+
+    lines = kernels.ptxas_log_path().read_text().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and function in line:
+            for later in lines[i + 1:i + 4]:
+                if "spill stores" in later:
+                    return tuple(int(w) for w in later.split()
+                                 if w.isdigit())[:3]
+    raise AssertionError(f"no ptxas report for {function}")
+
+
+def k4_kernel_line(phase, name, n_slots, tab):
+    """Registers, spills, resident warps an SM and staged output planes of
+    the K4 kernel that runs on these tables."""
+    from pbrs_tpu_torch.accel import fused_wave as fw
+
+    info = fw.kernel_info(tab)
+    stack, spill_st, spill_ld = ptxas_spills(f"fused_wave_kernelILi{n_slots}E")
+    print(f"phase {phase} {name} kernel, {n_slots} slots: {info['registers']} "
+          f"registers, {stack} B stack, {spill_st} / {spill_ld} B spill "
+          f"stores / loads (ptxas); {info['warps_per_sm']} resident warps an "
+          f"SM ({info['threads']} threads a block, {info['window']} lanes "
+          f"regrouped), {info['smem_bytes']} B shared memory, "
+          f"{info['staged_planes']} of {fw.N_OUT + 2} output planes staged")
+
+
 def phase_wave(dev, seen, rng="pcg", nee_mode="twoarm", phase=13):
     """K4 against its plain version on every K4 launch of sample 0 of the
-    interior main path (1024^2, depth 5) and of the wave zoo at 256^2,
-    drawing `rng` with `nee_mode` NEE; K4's device time per launch (CUDA
-    events, the device put to sleep first), its plain version's, and the
-    bound, over the interior launches (and, for a Sobol' or folded
-    variant, the PCG two-arm twin's time on the same planes)."""
+    interior main path (1024^2, depth 5: whole windows) and of the wave
+    zoo at 250^2 (62500 lanes: the last window partial), drawing `rng`
+    with `nee_mode` NEE; the kernel's registers, spills and
+    resident warps for each slot count seen; K4's device time per launch
+    by bounce (CUDA events, the device put to sleep first), its plain
+    version's, and the bound, over the interior launches (and, for a
+    Sobol' or folded variant, the PCG two-arm twin's time on the same
+    planes)."""
     from pbrs_tpu_torch.accel import fused_wave as fw
 
     folded = nee_mode == "folded"
     name = variant("K4", rng, folded)
     report = {"max_abs_err": 0.0}
-    zoo = wave_zoo_scene(256).to(dev)
+    zoo = wave_zoo_scene(250).to(dev)
     if not fw.scene_supports_wave(zoo):
         raise AssertionError("the wave zoo is not wave-eligible")
     launches = {"interior": seen["k4"],
@@ -1257,6 +1290,13 @@ def phase_wave(dev, seen, rng="pcg", nee_mode="twoarm", phase=13):
     for label, rows in launches.items():
         if not rows:
             raise AssertionError(f"{label}: no K4 launch on its main path")
+    window = fw.kernel_info(launches["zoo"][0][0])["window"]
+    if all(fin.shape[1] % window == 0 for _, fin, _, _ in launches["zoo"]):
+        raise AssertionError(f"no zoo launch ends in a partial {window}-lane "
+                             f"window")
+    slots = {}
+    for label, rows in launches.items():
+        slots.setdefault(rows[0][0].n_slots, rows[0][0])
         for i, (tab, fin, iin, kw) in enumerate(rows):
             if (kw.get("rng", "pcg"), kw.get("folded", False)) != (rng,
                                                                    folded):
@@ -1265,10 +1305,11 @@ def phase_wave(dev, seen, rng="pcg", nee_mode="twoarm", phase=13):
             got = k4_compare(tab, fin, iin, kw)
             report["max_abs_err"] = max(report["max_abs_err"], got["err"])
             print(f"phase {phase} {name} {label} launch {i} (bounce "
-                  f"{kw['bounce']}, "
-                  f"{tab.n_slots} slots): {got['lanes']} lanes, {got['live']} "
-                  f"alive; outside atol {K4_ATOL} rtol {K4_RTOL}: "
-                  f"{got['outside']}; not bit-equal {got['not_bit_equal']}; "
+                  f"{kw['bounce']}, {tab.n_slots} slots): {got['lanes']} "
+                  f"lanes (last window {(got['lanes'] - 1) % window + 1} of "
+                  f"{window}), {got['live']} alive; outside atol {K4_ATOL} "
+                  f"rtol {K4_RTOL}: {got['outside']}; not bit-equal "
+                  f"{got['not_bit_equal']}; "
                   f"alive/spec differ {got['alive']}; max |d| "
                   f"{got['err']:.3g}; shadow rays kernel {got['rays_k']} "
                   f"plain {got['rays_p']}")
@@ -1276,8 +1317,10 @@ def phase_wave(dev, seen, rng="pcg", nee_mode="twoarm", phase=13):
                     or got["rays_k"] != got["rays_p"]):
                 raise AssertionError(f"{name} disagrees with its plain "
                                      f"version on {label} launch {i}")
+    for n_slots, tab in sorted(slots.items()):
+        k4_kernel_line(phase, name, n_slots, tab)
     per = {"ms": [], "plain_ms": [], "bound_ms": [], "bound_by": [],
-           "twin_ms": []}
+           "twin_ms": [], "bounce": []}
     cnt = torch.zeros(1, dtype=torch.int64, device=dev)
     # Folded, K4 need not write the second shadow query's direction and
     # side (4 planes).
@@ -1297,13 +1340,15 @@ def phase_wave(dev, seen, rng="pcg", nee_mode="twoarm", phase=13):
         b_ms, b_by = bound(moved, ops)
         twin_said = (f", K4 PCG two-arm on the same planes {twin_ms:.4f} ms"
                      if twin != kw else "")
-        print(f"phase {phase} {name} time, interior launch {i}: {n} lanes, "
+        print(f"phase {phase} {name} time, interior launch {i} (bounce "
+              f"{kw['bounce']}): {n} lanes, "
               f"{int((iin[2] > 0).sum())} alive; kernel {ms:.4f} ms"
               f"{twin_said}, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}: {moved / 1e6:.1f} MB, {ops / n:.0f} plain-version "
               f"float ops a lane)")
         for key, v in zip(("ms", "plain_ms", "bound_ms", "bound_by",
-                           "twin_ms"), (ms, plain_ms, b_ms, b_by, twin_ms)):
+                           "twin_ms", "bounce"),
+                          (ms, plain_ms, b_ms, b_by, twin_ms, kw["bounce"])):
             per[key].append(v)
     k = len(per["ms"])
     for key in ("ms", "plain_ms", "bound_ms", "twin_ms"):
@@ -1316,6 +1361,13 @@ def phase_wave(dev, seen, rng="pcg", nee_mode="twoarm", phase=13):
           f"{report['plain_ms']:.4f} ms, bound "
           f"{report['bound_ms']:.4f} ms ({report['bound_by']}); per sample: "
           f"kernel {sum(per['ms']):.4f} ms")
+    first = [ms for ms, b in zip(per["ms"], per["bounce"]) if b == 0]
+    later = [ms for ms, b in zip(per["ms"], per["bounce"]) if b > 0]
+    if first and later:
+        print(f"phase {phase} {name} by bounce: bounce 0 {first[0]:.4f} ms, "
+              f"bounces 1-{max(per['bounce'])} "
+              f"{min(later):.4f}-{max(later):.4f} ms, the slowest "
+              f"{max(later) / first[0]:.2f}x bounce 0")
     return report
 
 
@@ -1983,15 +2035,25 @@ def phase_k6(dev, smi, rng):
 
 def phase_mm(dev, smi):
     """Phase 26, the gather-matmul probe (csrc/mm_probe.cu) on its own
-    path, tools/prof_rounds.py Q2: [1728, 128] x [128, 1024] bf16 at reps
-    100 and 400 against the plain version (bit-equal: every sum is exact
-    on the 1% mask), then Q2's own timings: the probe's ms a launch and a
-    round, its bound, and cuBLAS: one torch.matmul of the operands a round,
-    and the probe's library time, one torch.matmul of the operands stacked
-    `reps` times along k (the same sum of products in one call)."""
+    path, tools/prof_rounds.py Q2: its tile, then [1728, 128] x [128, 1024]
+    bf16 at reps 100 and 400 against the plain version (bit-equal, as
+    measured: rounding the running sum absorbs the reps-1 products'
+    last-bit differences), then Q2's
+    own timings: the probe's ms a launch and a round, its bound, and
+    cuBLAS: one torch.matmul of the operands a round, and the probe's
+    library time, one torch.matmul of the operands stacked `reps` times
+    along k (the same sum of products in one call). At reps 1 the
+    product is the result, and where a column sums three or more table
+    entries the tensor cores' sum may round otherwise than the float32
+    matmul's: held to one unit in the last place of the plain value."""
     from pbrs_tpu_torch.tools import prof_rounds as pr
 
     tab, mask = pr.probe_operands(0, dev)
+    rows, cols = pr.TILE_ROWS, pr.TILE_COLS
+    blocks = tab.shape[0] // rows * (mask.shape[1] // cols)
+    print(f"phase 26 mm probe tile: {rows} x {cols} of the "
+          f"{tab.shape[0]} x {mask.shape[1]} result a block (one warpgroup, "
+          f"wgmma m64n{cols}k16), {blocks} blocks")
     pr.LAUNCHES = 0
     outs = {reps: pr.mm_probe(tab, mask, reps) for reps in (100, 400)}
     launches = pr.LAUNCHES
@@ -2007,6 +2069,17 @@ def phase_mm(dev, smi):
         if diff:
             raise AssertionError("the probe disagrees with its plain version")
         report["max_abs_err"] = max(report["max_abs_err"], err)
+    one, want = pr.mm_probe(tab, mask, 1), pr.mm_reference(tab, mask, 1)
+    d = (one - want).abs()
+    ulp = torch.nextafter(want.abs(), torch.tensor(float("inf"),
+                                                   device=dev)) - want.abs()
+    beyond = int((d > ulp).sum())
+    print(f"phase 26 mm probe reps 1: elements not bit-equal "
+          f"{int((one.view(torch.int32) != want.view(torch.int32)).sum())}, "
+          f"more than one ulp apart {beyond}, max |d| {float(d.max()):.3g}")
+    if beyond:
+        raise AssertionError("the probe's product at reps 1 is more than one "
+                             "ulp from the plain version's")
     for row in pr.q2(dev):
         reps = row["reps"]
         print(f"phase 26 mm probe reps {reps}: {row['ms']:.4f} ms a launch "

@@ -20,13 +20,14 @@ contribution that the next bounce's closest hit resolves.
 kernel (``csrc/fused_wave.cu``) for CUDA tensors and takes the plain
 version for CPU tensors. The TPU kernel's one-hot / masked row gathers and
 its bf16 3-split material banks are not ported: a lane reads its material,
-light and delta rows with one indexed load each.
+light and delta rows with one indexed load each. The kernel regroups each
+block's lanes by shading class (``WaveTables.mat_class``) before shading
+them; which thread shades a lane changes nothing a lane computes.
 
-The TPU kernel runs a 64 x 128-lane block only when one of its lanes is
-alive, and then shades every lane of it; an all-dead block passes its
-lanes through (zeros, the incoming direction and beta). Both versions here
-keep that rule over groups of GROUP lanes, so every output plane equals the
-TPU kernel's on every lane.
+A lane that enters dead passes through on its own: zeros, its incoming
+direction and beta. (The TPU kernel passes lanes through only when its
+whole 64 x 128-lane block is dead and shades the dead lanes of a live
+block; the apply step reads nothing of a dead lane that differs.)
 
 Left out, each refused or declined and queued in ROADMAP.md:
 ``render_samples_compacted`` and the Fourier override.
@@ -65,7 +66,7 @@ DELTA_COLS = 8  # delta bank [D, 8]: kind, position, color, unused
 MAX_MATS = 512
 MAX_DELTA = 16
 MAX_SLOTS = 5  # materials/table.py MAX_LOBES
-GROUP = 64 * 128  # the TPU kernel's block of lanes
+MAX_CLASSES = 32  # csrc/fused_wave.cu: shading classes a block sorts into
 # Input planes: N_BASE floats (dir, hit position, normal, dpdu, env
 # radiance), 3 per textured slot, ENV_IS_PLANES for an importance-sampled
 # env (sampled direction, radiance, pdf), then beta rgb; int planes
@@ -128,6 +129,8 @@ class WaveTables:
     present_kinds: tuple
     light_shapes: tuple
     tex_id: torch.Tensor  # [M, L] int32 texture ids for the outside eval
+    mat_class: torch.Tensor  # [M + 1] int32 shading class of each row
+    n_classes: int
 
     @property
     def n_lights(self):
@@ -167,6 +170,7 @@ class WaveTables:
         mats = np.concatenate([_np(mt.emission).astype(np.float32)]
                               + [slot_cols(s) for s in range(n_slots)], axis=1)
         used = set(km[:, :n_slots].reshape(-1).tolist())
+        mat_class, n_classes = shading_classes(km[:, :n_slots])
         lights, light_shapes, delta = light_banks(scene)
         dl = scene.delta_lights
         has_env = scene.env.kind != lt.ENV_NONE
@@ -180,7 +184,22 @@ class WaveTables:
             present_kinds=tuple(sorted(used - {lb.NONE})),
             light_shapes=light_shapes,
             tex_id=torch.as_tensor(_np(mt.tex_id), dtype=torch.int32,
-                                   device=dev))
+                                   device=dev),
+            mat_class=torch.as_tensor(mat_class, device=dev),
+            n_classes=n_classes)
+
+
+def shading_classes(kinds):
+    """(class [M + 1] int32, class count) of the material rows' lobe-kind
+    tuples [M, L], then of a missed lane (all slots NONE): rows with equal
+    kinds share a class, numbered in order of first appearance; classes past
+    MAX_CLASSES - 1 share the last. K4 sorts a block's lanes by class, so a
+    warp runs one row kind's branches."""
+    ids = {}
+    rows = [tuple(r) for r in np.asarray(kinds).tolist()]
+    out = [min(ids.setdefault(r, len(ids)), MAX_CLASSES - 1)
+           for r in rows + [(lb.NONE,) * np.asarray(kinds).shape[1]]]
+    return np.asarray(out, np.int32), min(len(ids), MAX_CLASSES)
 
 
 # ----------------------------- plain version --------------------------------
@@ -195,16 +214,6 @@ def _slot_planes(got, base):
     for n in ("kind", "distrib", "fr_kind"):
         lob[n] = lob[n].to(torch.int32)
     return lob
-
-
-def group_flags(alive):
-    """[ceil(N / GROUP)] int32: 1 where a group of GROUP lanes holds a live
-    lane."""
-    n = alive.shape[0]
-    g = -(-n // GROUP)
-    live = torch.zeros(g * GROUP, dtype=torch.int32, device=alive.device)
-    live[:n] = (alive > 0).to(torch.int32)
-    return live.view(g, GROUP).amax(dim=1)
 
 
 def shade_reference(tab: WaveTables, fin, iin, *, seed, bounce, first,
@@ -490,13 +499,14 @@ def shade_reference(tab: WaveTables, fin, iin, *, seed, bounce, first,
               out["s2d1"], out["s2d2"], out["s2t"], out["s2side"], out["c2r"],
               out["c2g"], out["c2b"], out["ecr"], out["ecg"], out["ecb"],
               out["spdf"], wnx, wny, wnz, nside, *nb)
-    # All-dead groups pass through: zeros, the incoming dir and beta.
-    live = group_flags(alive_i).repeat_interleave(GROUP)[:rdx.shape[0]] > 0
+    # A lane that enters dead passes through: zeros, its incoming dir and
+    # beta.
+    live = alive_i > 0
     through = [zero] * 23 + [rdx, rdy, rdz, zero, *beta]
     fout = torch.stack([torch.where(live, a, b)
                         for a, b in zip(planes, through)])
-    iout = torch.stack([(live & alive).to(torch.int32),
-                        (live & alive & b_delta).to(torch.int32)])
+    iout = torch.stack([alive.to(torch.int32),
+                        (alive & b_delta).to(torch.int32)])
     return fout, iout, n_shadow
 
 
@@ -515,11 +525,14 @@ def _check(tab, fin, iin, count):
     for t in (tab.mats, tab.lights, tab.delta):
         ok = ok and (t.dtype == torch.float32 and t.device == dev
                      and t.is_contiguous())
+    ok = ok and (tab.mat_class.dtype == torch.int32
+                 and tab.mat_class.device == dev
+                 and tuple(tab.mat_class.shape) == (tab.mats.shape[0] + 1,))
     if not ok:
         raise ValueError(
             f"shade wants contiguous tensors on the tables' device: fin "
             f"float32 [{tab.n_in}, N], iin int32 [{N_INT}, N], count int64 "
-            "[1], float32 tables")
+            "[1], float32 tables, int32 mat_class [M + 1]")
     if not 1 <= tab.n_slots <= MAX_SLOTS:
         raise ValueError(f"{tab.n_slots} lobe slots; K4 takes 1-{MAX_SLOTS}")
 
@@ -549,22 +562,42 @@ def shade(tab: WaveTables, fin, iin, count, *, seed, bounce, first, rr_on,
     iout = torch.empty((2, n), dtype=torch.int32, device=fin.device)
     if n == 0:
         return fout, iout
-    live = group_flags(iin[2])
     seed_c = int(seed) & smp.MASK32
     seed_c = seed_c - (1 << 32) if seed_c >= (1 << 31) else seed_c
     stream = torch.cuda.current_stream(fin.device).cuda_stream
     rc = kernels.lib().pbrs_fused_wave(
         tab.mats.data_ptr(), tab.mats.shape[0], tab.mats.shape[1],
-        tab.n_slots, tab.lights.data_ptr(), tab.n_area,
+        tab.n_slots, tab.mat_class.data_ptr(), tab.n_classes,
+        tab.lights.data_ptr(), tab.n_area,
         tab.delta.data_ptr(), tab.n_delta, tab.world_radius,
         int(tab.has_env), int(tab.env_is), _tex_slot_mask(tab),
         fk.RNG_CODES[rng], int(bool(folded)), seed_c, int(bounce),
         int(bool(first)), int(bool(rr_on)), fin.data_ptr(), fin.shape[0],
-        iin.data_ptr(), live.data_ptr(), n, fout.data_ptr(), iout.data_ptr(),
+        iin.data_ptr(), n, fout.data_ptr(), iout.data_ptr(),
         count.data_ptr(), stream)
     kernels.check(rc, "fused_wave")
     LAUNCHES += 1
     return fout, iout
+
+
+KERNEL_INFO = ("registers", "local_bytes", "warps_per_sm", "smem_bytes",
+               "threads", "window", "staged_planes")
+
+
+def kernel_info(tab: WaveTables) -> dict:
+    """The K4 kernel that launches on these tables, as built and as it fits
+    an SM of the current card: registers and local memory (spill and stack)
+    bytes a thread, resident warps an SM, dynamic shared memory a block,
+    threads a block, lanes a block regroups and output planes it stages in
+    shared memory (KERNEL_INFO). CUDA only."""
+    import ctypes
+
+    info = (ctypes.c_int * len(KERNEL_INFO))()
+    rc = kernels.lib().pbrs_fused_wave_info(
+        tab.n_slots, tab.mats.shape[0], tab.mats.shape[1],
+        ctypes.cast(info, ctypes.c_void_p))
+    kernels.check(rc, "fused_wave_info")
+    return dict(zip(KERNEL_INFO, info))
 
 
 def _pend_contrib(pend, hit, env_here, p_env):

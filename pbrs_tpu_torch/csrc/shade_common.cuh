@@ -341,8 +341,9 @@ struct AreaLight {
   float pt[3], ln[3];
 };
 
-static __device__ void area_init(const float* lights, int idx, const float* p,
-                                 float u_l0, float u_l1, AreaLight& L) {
+// The light's shape constants (everything area_query reads) from its row.
+static __device__ __forceinline__ void area_shape(const float* lights,
+                                                  int idx, AreaLight& L) {
   const float* r = lights + idx * LIGHT_COLS;
   L.kind = (int)__ldg(r);
   for (int i = 0; i < 3; ++i) {
@@ -369,12 +370,31 @@ static __device__ void area_init(const float* lights, int idx, const float* p,
   L.tn2 = max0(L.tn[0] * L.tn[0] + L.tn[1] * L.tn[1] + L.tn[2] * L.tn[2],
                (float)1e-30);
   L.area = 1.0f;
+  if (L.kind == S_QUAD) {
+    L.area = sqrtf(L.ln2);
+  } else if (L.kind == S_SPHERE) {
+    L.area = FOUR_PI_F * L.lsc * L.lsc;
+  } else if (L.kind == S_DISK) {
+    L.area = PI_F * (L.l2[0] * L.l2[0] + L.l2[1] * L.l2[1] +
+                     L.l2[2] * L.l2[2]);
+  } else if (L.kind == S_TRIANGLE) {
+    L.area = 0.5f * sqrtf(L.tn2);
+  }
+}
+
+// A point sampled on the light seen from p, with the (raw) light normal
+// there; L holds the light's shape (area_shape).
+static __device__ __forceinline__ void area_sample(const float* p,
+                                                   float u_l0, float u_l1,
+                                                   AreaLight& L) {
+  const float* l0 = L.l0;
+  const float* l1 = L.l1;
+  const float* l2 = L.l2;
   for (int i = 0; i < 3; ++i) {
     L.pt[i] = 0.0f;
     L.ln[i] = i == 2 ? 1.0f : 0.0f;
   }
   if (L.kind == S_QUAD) {
-    L.area = sqrtf(L.ln2);
     const float ilq = rsqrtf(L.ln2);
     for (int i = 0; i < 3; ++i) {
       L.pt[i] = l0[i] + u_l0 * l1[i] + u_l1 * l2[i];
@@ -382,7 +402,6 @@ static __device__ void area_init(const float* lights, int idx, const float* p,
     }
   } else if (L.kind == S_SPHERE) {
     const float lsc = L.lsc;
-    L.area = FOUR_PI_F * lsc * lsc;
     // Cone sampling from outside, uniform from inside.
     const float wcx = l0[0] - p[0], wcy = l0[1] - p[1], wcz = l0[2] - p[2];
     const float dc2 = wcx * wcx + wcy * wcy + wcz * wcz;
@@ -420,7 +439,6 @@ static __device__ void area_init(const float* lights, int idx, const float* p,
       L.ln[i] = ns;
     }
   } else if (L.kind == S_DISK) {
-    L.area = PI_F * (l2[0] * l2[0] + l2[1] * l2[1] + l2[2] * l2[2]);
     float cdx, cdy;
     concentric(u_l0 * 2.0f - 1.0f, u_l1 * 2.0f - 1.0f, cdx, cdy);
     for (int i = 0; i < 3; ++i) {
@@ -428,7 +446,6 @@ static __device__ void area_init(const float* lights, int idx, const float* p,
       L.ln[i] = l1[i];
     }
   } else if (L.kind == S_TRIANGLE) {
-    L.area = 0.5f * sqrtf(L.tn2);
     const bool over = (u_l0 + u_l1) > 1.0f;
     const float tu = over ? 1.0f - u_l1 : u_l0;
     const float tv = over ? 1.0f - u_l0 : u_l1;
@@ -438,6 +455,13 @@ static __device__ void area_init(const float* lights, int idx, const float* p,
       L.ln[i] = L.tn[i] * itq;
     }
   }
+}
+
+// The chosen area light of a lane: its shape and a point sampled on it.
+static __device__ void area_init(const float* lights, int idx, const float* p,
+                                 float u_l0, float u_l1, AreaLight& L) {
+  area_shape(lights, idx, L);
+  area_sample(p, u_l0, u_l1, L);
 }
 
 // (hit, t, solid-angle pdf) of the light's shape along unit w from p; the

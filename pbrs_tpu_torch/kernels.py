@@ -48,9 +48,10 @@ _SIGNATURES = {
                                _I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP,
                                _VP, _VP],
     "pbrs_trace_bvh": [_VP, _VP, _VP, _I, _VP, _I, _VP, _VP, _I, _VP],
-    "pbrs_fused_wave": [_VP, _I, _I, _I, _VP, _I, _VP, _I, _F, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _VP, _I, _VP, _VP, _I, _VP,
-                        _VP, _VP, _VP],
+    "pbrs_fused_wave": [_VP, _I, _I, _I, _VP, _I, _VP, _I, _VP, _I, _F, _I,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _VP, _I, _VP, _I,
+                        _VP, _VP, _VP, _VP],
+    "pbrs_fused_wave_info": [_I, _I, _I, _VP],
     "pbrs_trace_prim_bvh": [_VP, _I, _VP, _VP, _I, _VP, _I, _VP, _VP, _I,
                             _VP],
     "pbrs_mm_probe": [_VP, _VP, _I, _I, _I, _VP, _VP],

@@ -6,8 +6,8 @@ card.
 Q2: what does one gather round cost? The reference times a bf16
     [1728, 128] x [128, 1024] product (its treelet kernel's one-hot gather
     shape) repeated `reps` times inside one kernel, mm_kernel. Here the
-    same probe is a hand-written CUDA kernel (csrc/mm_probe.cu, launched
-    by ``mm_probe``), timed at the reference's reps of 100 and 400 in
+    same probe is a hand-written CUDA kernel (csrc/mm_probe.cu, wgmma on
+    operands held in shared memory, launched by ``mm_probe``), timed at the reference's reps of 100 and 400 in
     microseconds a round, beside one cuBLAS ``torch.matmul`` of the same
     bf16 operands (the probe's library yardstick; the port never calls
     it).
@@ -41,7 +41,9 @@ from .. import kernels
 ROWS3 = 3 * 9 * 64  # 1728: _prof_rounds.py's gather rows
 K = 128
 COLS = 1024
-TILE = 64  # csrc/mm_probe.cu: the probe takes rows and columns in 64s
+# csrc/mm_probe.cu: a block computes a 64 x 128 tile of the result, so the
+# probe takes rows in 64s and columns in 128s.
+TILE_ROWS, TILE_COLS = 64, 128
 # Published H100 SXM peaks: dense bf16 tensor-core rate and HBM3
 # bandwidth.
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -75,19 +77,19 @@ def mm_reference(tab, mask, reps):
 
 def mm_probe(tab, mask, reps):
     """The probe: [m, 128] bf16 x [128, n] bf16, `reps` times, summed into
-    [m, n] float32. CUDA tensors launch csrc/mm_probe.cu (m and n
-    multiples of 64); CPU tensors take mm_reference."""
+    [m, n] float32. CUDA tensors launch csrc/mm_probe.cu (m a multiple of
+    64, n of 128); CPU tensors take mm_reference."""
     global LAUNCHES
     if tab.device.type == "cpu":
         return mm_reference(tab, mask, reps)
     if not (tab.is_cuda and mask.device == tab.device
             and tab.dtype == torch.bfloat16 and mask.dtype == torch.bfloat16
             and tab.dim() == 2 and mask.dim() == 2 and tab.shape[1] == K
-            and mask.shape[0] == K and tab.shape[0] % TILE == 0
-            and mask.shape[1] % TILE == 0 and tab.is_contiguous()
+            and mask.shape[0] == K and tab.shape[0] % TILE_ROWS == 0
+            and mask.shape[1] % TILE_COLS == 0 and tab.is_contiguous()
             and mask.is_contiguous() and reps >= 0):
         raise ValueError("mm_probe takes contiguous CUDA bf16 [m, 128] and "
-                         "[128, n] with m, n multiples of 64, got "
+                         "[128, n] with m a multiple of 64 and n of 128, got "
                          f"{tab.dtype} {tuple(tab.shape)} on {tab.device} "
                          f"and {mask.dtype} {tuple(mask.shape)} on "
                          f"{mask.device}")

@@ -49,8 +49,11 @@ def test_import_leaves_jax_out():
                    check=True, timeout=120)
 
 
-@pytest.mark.parametrize("path", sorted(_py_files()),
-                         ids=lambda p: os.path.relpath(p, PKG))
+# The port's modules and chip_smoke.py, which drives the port on the card
+# and must import nothing of JAX or the reference package either.
+@pytest.mark.parametrize(
+    "path", sorted(_py_files()) + [os.path.join(REPO, "chip_smoke.py")],
+    ids=lambda p: os.path.relpath(p, PKG))
 def test_no_module_imports_jax_or_reference(path):
     tree = ast.parse(open(path).read())
     names = []

@@ -19,7 +19,7 @@ from test_fused_single_lobe import _shrunk
 from test_fused_single_lobe import _zoo_scene as _single_lobe_zoo
 from test_fused_wave import _zoo_scene
 from test_torch_single_lobe import carried
-from test_torch_wave import SIDE_PLANES, _carry, _pallas_planes
+from test_torch_wave import _carry, _pallas_planes, assert_planes_match
 import torch_threads  # noqa: F401  (one PyTorch thread a worker)
 
 ATOL, RTOL = 3e-5, 2e-4  # tests/test_fused_single_lobe.py:272, test_fused_wave.py:212
@@ -68,9 +68,11 @@ def record_shade(tscene, sampler, folded=False):
 
 def compare_planes(jscene, calls):
     """shade_reference against _shade_call(interpret=True) on every
-    recorded call: all 30 float and 2 int planes per lane at ATOL / RTOL;
-    only a side plane whose direction lies in the surface's plane to
-    rounding (|d . n| <= 1e-5 |d|) may differ (ROADMAP Queue 3)."""
+    recorded call (test_torch_wave.assert_planes_match): all 30 float and 2
+    int planes of every lane that enters alive at ATOL / RTOL, where only a
+    side plane whose direction lies in the surface's plane to rounding
+    (|d . n| <= 1e-5 |d|) may differ (ROADMAP Queue 3); the lanes that
+    enter dead pass through on their own."""
     integ = jfw.FusedWaveIntegrator(jscene, interpret=True, use_pallas=False)
     n = SIZE * SIZE
     for tab, fin, iin, kw, (fout, iout) in calls:
@@ -87,16 +89,7 @@ def compare_planes(jscene, calls):
             env_is=integ.env_is, folded=kw["folded"], interpret=True,
             rng=kw["rng"])
         want = np.stack([np.asarray(o).reshape(-1)[:n] for o in out])
-        got = np.concatenate([fout.numpy(), iout.numpy().astype(np.float32)])
-        ok = np.isclose(got, want, atol=ATOL, rtol=RTOL)
-        nrm = fin.numpy()[6:9]
-        for side, dirs in SIDE_PLANES.items():
-            d = got[list(dirs)]
-            ok[side] |= (np.abs((d * nrm).sum(0))
-                         <= 1e-5 * np.linalg.norm(d, axis=0))
-        assert ok.all(), [(k, int((~ok[k]).sum())) for k in range(32)
-                          if not ok[k].all()]
-        assert int((iin[2] > 0).sum()) > 0
+        assert_planes_match(fin, iin, fout, iout, want)
 
 
 @pytest.fixture(scope="module")
