@@ -73,6 +73,8 @@ SWEEP_OPS = (58, 64, 91, 34)
 # and one primitive test by family kind (triangle, quad, sphere, disk).
 NODE_OPS = 30
 PRIM_OPS = (60, 77, 59, 34)
+# Lanes a warp at which phases 2, 10 and 13 also time K1 and K5.
+CLAIMS = (32, 64, 128)
 MESH_LEVELS, MESH_DEPTH, EVERY_DEPTH = 5, 6, 5  # benchmarks.json cells
 BVH_SET = 1 << 16  # rays of each K5 parity set
 BVH_COUNT_SAMPLE = 4096  # lanes whose walk is counted for K5's bound
@@ -152,6 +154,13 @@ def phase_build():
             if (line.startswith("==") or "registers" in line or "spill" in line
                     or "Compiling entry function" in line):
                 print(f"phase 1 ptxas: {line.strip()}")
+    frames = bvh_stack_frames()
+    print(f"phase 1 K5 stack frame (ptxas): "
+          f"{sorted(set(f[1] for f in frames))} B in each of {len(frames)} "
+          f"trace_bvh_kernel instantiations; spill stores / loads "
+          f"{sorted(set(f[2:] for f in frames))} B")
+    if len(frames) != 8 or any(f[1] for f in frames):
+        raise AssertionError(f"K5 keeps a stack frame: {frames}")
     from pbrs_tpu_torch.accel import bvh, native
 
     lo = np.random.default_rng(0).uniform(-1, 1, (64, 3)).astype(np.float32)
@@ -171,16 +180,42 @@ def bound(bytes_moved, ops):
 
 
 def sweep_ops(counts):
-    """Operations of one full sweep over a bank with these family counts."""
+    """Operations of primitive tests, counted by family (spheres, quads,
+    triangles, disks): one full sweep over a bank with these counts."""
     return sum(c * o for c, o in zip(counts, SWEEP_OPS))
 
 
-def k1(bank, counts, rays, any_hit=False):
-    """K1 launched on a ray batch."""
+def at_claims(time_ms):
+    """time_ms() with K1 and K5 launched at each of CLAIMS lanes a warp
+    (kernels.TRACE_CLAIM takes 32 for a closest hit, 128 for an any hit):
+    {lanes a warp: ms}."""
+    from pbrs_tpu_torch import kernels
+
+    keep = kernels.TRACE_CLAIM
+    out = {}
+    try:
+        for c in CLAIMS:
+            kernels.TRACE_CLAIM = (c, c)
+            out[c] = time_ms()
+    finally:
+        kernels.TRACE_CLAIM = keep
+    return out
+
+
+def claims_text(rows):
+    """The mean ms of at_claims results, as '32 / 64 / 128 lanes a warp:
+    a / b / c ms'."""
+    return (f"{' / '.join(str(c) for c in CLAIMS)} lanes a warp: "
+            + " / ".join(f"{sum(r[c] for r in rows) / len(rows):.4f}"
+                         for c in CLAIMS) + " ms")
+
+
+def k1(flat, rays, any_hit=False):
+    """K1 launched on a ray batch (flat: trace_kernel.FlatBank)."""
     from pbrs_tpu_torch.accel import trace_kernel as tk
     from pbrs_tpu_torch.geometry import ray as ray_mod
 
-    return tk.trace_planes(bank, counts, ray_mod.to_planes(rays), any_hit)
+    return tk.trace_planes(flat, ray_mod.to_planes(rays), any_hit)
 
 
 def k1_reference(bank, counts, rays, chunk=1 << 16):
@@ -194,11 +229,13 @@ def k1_reference(bank, counts, rays, chunk=1 << 16):
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
-def k1_parity(bank, counts, rays, shadow=None):
+def k1_parity(flat, rays, shadow=None):
     """K1 (closest hit on `rays`, any hit on `shadow`, by default the same
     rays) against its plain version: lanes whose id differs, whose t
-    differs (rel > 1e-6) or whose occlusion differs; max |dt|; hits."""
-    t_k, id_k = k1(bank, counts, rays)
+    differs (rel > 1e-6), whose t is not bit-equal or whose occlusion
+    differs; max |dt|; hits."""
+    bank, counts = flat.bank, flat.counts
+    t_k, id_k = k1(flat, rays)
     t_p, id_p = k1_reference(bank, counts, rays)
     same_id = id_k == id_p
     both = same_id & torch.isfinite(t_k) & torch.isfinite(t_p)
@@ -208,45 +245,90 @@ def k1_parity(bank, counts, rays, shadow=None):
         shadow, occ_p = rays, torch.isfinite(t_p)
     else:
         occ_p = torch.isfinite(k1_reference(bank, counts, shadow)[0])
-    occ_k = torch.isfinite(k1(bank, counts, shadow, any_hit=True)[0])
+    occ_k = torch.isfinite(k1(flat, shadow, any_hit=True)[0])
     bad = {"id": int((~same_id).sum()), "t": int((rel > 1e-6).sum()),
+           "t bits": int((t_k.view(torch.int32)
+                          != t_p.view(torch.int32)).sum()),
            "occlusion": int((occ_k != occ_p).sum())}
     return bad, err, int(torch.isfinite(t_p).sum())
+
+
+def k1_launch_bound(flat, planes, any_hit, rng):
+    """(bound ms, what binds, chunk tests, primitive tests) of one K1
+    launch: t_max (4 B) and 8 B out a lane, the ray (24 B) of a live lane
+    and the packed bank once, against the primitive tests that the host repeat of the chunk-culled sweep
+    (trace_kernel.sweep_chunks_reference) needs on BVH_COUNT_SAMPLE of its
+    lanes, scaled to all of them. The chunk box tests are the design's own
+    culling, not work the function needs: counted, not bounded."""
+    from pbrs_tpu_torch.accel import trace_kernel as tk
+
+    n = planes.shape[1]
+    idx = torch.from_numpy(rng.choice(n, min(n, BVH_COUNT_SAMPLE),
+                                      replace=False)).to(planes.device)
+    _, _, chunks, prims = tk.sweep_chunks_reference(
+        flat, planes_rays(planes[:, idx]), any_hit=any_hit)
+    scale = n / idx.numel()
+    live = int((planes[6] > 0).sum())
+    ms, by = bound(n * (4 + 8) + live * 6 * 4 + 4 * flat.packed.numel(),
+                   scale * sweep_ops(prims))
+    return ms, by, scale * chunks, scale * sum(prims)
 
 
 def phase_trace(dev, rng):
     """K1 vs its plain version on 2^20 rays, closest hit and shadow rays."""
     from pbrs_tpu_torch.accel import trace_kernel as tk
+    from pbrs_tpu_torch.geometry import ray as ray_mod
 
-    report = {"max_abs_err": 0.0}
+    report = {"max_abs_err": 0.0,
+              "per": {"ms": [], "plain_ms": [], "bound_ms": [],
+                      "bound_by": [], "claims": []}}
     for label, scene in (("cornell", cornell(8)), ("random", random_scene(rng))):
         scene = scene.to(dev)
-        bank, counts = tk.prim_scalars(scene.geom)
+        flat = tk.pack_bank(*tk.prim_scalars(scene.geom))
         rays = random_rays(rng, N_RAYS, dev)
         t_max = torch.from_numpy(
             rng.uniform(0.0, 900.0, N_RAYS).astype(np.float32)).to(dev)
-        bad, err, hits = k1_parity(bank, counts, rays,
-                                   rays.replace(t_max=t_max))
+        bad, err, hits = k1_parity(flat, rays, rays.replace(t_max=t_max))
         report["max_abs_err"] = max(report["max_abs_err"], err)
-        print(f"phase 2 K1 {label}: {N_RAYS} rays, {hits} hits; id differs "
-              f"{bad['id']}, t differs (rel>1e-6) {bad['t']}, occlusion "
-              f"differs {bad['occlusion']}; max |dt| {err:.3g}")
-        if (bad["id"] > 1e-4 * N_RAYS or bad["t"]
-                or bad["occlusion"] > 1e-4 * N_RAYS):
+        print(f"phase 2 K1 {label}: {N_RAYS} rays, {hits} hits, "
+              f"{sum(flat.counts)}-row bank in {sum(flat.chunks)} chunks; id "
+              f"differs {bad['id']}, t differs (rel>1e-6) {bad['t']}, t not "
+              f"bit-equal {bad['t bits']}, occlusion differs "
+              f"{bad['occlusion']}; max |dt| {err:.3g}")
+        if any(bad.values()):
             raise AssertionError(f"K1 disagrees with its plain version on "
                                  f"{label}")
         if label == "cornell":
-            report["ms"] = cuda_ms(lambda: k1(bank, counts, rays), 20)
-            report["plain_ms"] = cuda_ms(
-                lambda: tk.trace_reference(bank, counts, rays), 3)
-            # Every closest-hit ray sweeps the whole bank; 7 floats in, t
-            # and id out per ray, the bank read once.
-            report["bound_ms"], report["bound_by"] = bound(
-                N_RAYS * (7 * 4 + 8) + bank.numel() * 4,
-                N_RAYS * sweep_ops(counts))
+            ms = cuda_ms(lambda: k1(flat, rays), 20)
+            plain_ms = cuda_ms(
+                lambda: tk.trace_reference(flat.bank, flat.counts, rays), 3)
+            planes = ray_mod.to_planes(rays)
+            b_ms, b_by, chunks, prims = k1_launch_bound(flat, planes, False,
+                                                        rng)
+            at = at_claims(lambda: cuda_ms(
+                lambda: tk.trace_planes(flat, planes), 20))
     print(f"phase 2 K1 time at {N_RAYS} rays (Cornell): kernel "
-          f"{report['ms']:.4f} ms, plain {report['plain_ms']:.4f} ms, bound "
-          f"{report['bound_ms']:.4f} ms ({report['bound_by']})")
+          f"{ms:.4f} ms (with to_planes), plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}: {chunks / N_RAYS:.2f} chunk and "
+          f"{prims / N_RAYS:.2f} primitive tests a ray); the kernel alone "
+          f"at {claims_text([at])}")
+    return report
+
+
+def k1_main_path_means(report):
+    """K1's kernels-line numbers: the mean over every main-path launch that
+    phases 10 and 13 replayed (mesh_ball's, everything's and the
+    interior's banks)."""
+    per = report["per"]
+    k = len(per["ms"])
+    for key in ("ms", "plain_ms", "bound_ms"):
+        report[key] = sum(per[key]) / k
+    report["bound_by"] = max(set(per["bound_by"]), key=per["bound_by"].count)
+    print(f"K1 mean over the {k} main-path launches of phases 10 and 13: "
+          f"kernel {report['ms']:.4f} ms, plain {report['plain_ms']:.4f} ms, "
+          f"bound {report['bound_ms']:.4f} ms (by {report['bound_by']} in "
+          f"{per['bound_by'].count(report['bound_by'])} of {k}); at "
+          f"{claims_text(per['claims'])}")
     return report
 
 
@@ -795,8 +877,9 @@ def mesh_scene(name):
 def main_path_launches(dev, scene, depth, rng="pcg", nee_mode="twoarm"):
     """Every K1, K4 and K5 launch of sample 0 of a scene's main path (route
     auto, at full width, sampler `rng`, NEE `nee_mode`), kept with its
-    inputs: {"k1": [(bank, counts, planes, any_hit)], "k5": [(family
-    tracer, planes, any_hit)], "k4": [(tables, fin, iin, keywords)]}."""
+    inputs: {"k1": [(packed bank, planes, any_hit)], "k5": [(family
+    tracer, planes, any_hit, t_in, id_in)], "k4": [(tables, fin, iin,
+    keywords)]}."""
     from pbrs_tpu_torch import render
     from pbrs_tpu_torch.accel import fused_wave as fw
     from pbrs_tpu_torch.accel import trace_kernel as tk
@@ -806,13 +889,14 @@ def main_path_launches(dev, scene, depth, rng="pcg", nee_mode="twoarm"):
     launch_k1, launch_k5, launch_k4 = (tk.trace_planes, tl.trace_planes,
                                        fw.shade)
 
-    def record_k1(bank, counts, planes, any_hit=False):
-        seen["k1"].append((bank, counts, planes, any_hit))
-        return launch_k1(bank, counts, planes, any_hit)
+    def record_k1(flat, planes, any_hit=False):
+        seen["k1"].append((flat, planes, any_hit))
+        return launch_k1(flat, planes, any_hit)
 
-    def record_k5(fam, planes, any_hit=False):
-        seen["k5"].append((fam, planes, any_hit))
-        return launch_k5(fam, planes, any_hit)
+    def record_k5(fam, planes, any_hit=False, t_in=None, id_in=None):
+        # K5 merges into the running hit in place: keep it as handed over.
+        seen["k5"].append((fam, planes, any_hit, clone(t_in), clone(id_in)))
+        return launch_k5(fam, planes, any_hit, t_in, id_in)
 
     def record_k4(tab, fin, iin, count, **kw):
         seen["k4"].append((tab, fin, iin, kw))
@@ -831,6 +915,10 @@ def main_path_launches(dev, scene, depth, rng="pcg", nee_mode="twoarm"):
         tk.trace_planes, tl.trace_planes, fw.shade = (launch_k1, launch_k5,
                                                       launch_k4)
     return seen
+
+
+def clone(x):
+    return None if x is None else x.clone()
 
 
 def planes_rays(planes):
@@ -858,19 +946,20 @@ def box_rays(rng, n, lo, hi, dev, scale):
                                for x in (o, d, t_max)))
 
 
-def bvh_compare(fam, rays):
-    """K5 (closest and any hit) against its plain version on one ray set:
-    counts of lanes whose t is not bit-equal, whose id or hit mask differs,
-    or whose any-hit mask differs from the closest hit's; max |dt|; hits;
-    the plain version's device ms."""
+def bvh_compare(fam, rays, t_in=None, id_in=None):
+    """K5 (closest and any hit, seeded with the running hit t_in / id_in
+    when given) against its plain version on one ray set: counts of lanes
+    whose t is not bit-equal, whose id or hit mask differs, or whose
+    any-hit mask differs from the closest hit's; max |dt|; hits; the plain
+    version's device ms."""
     from pbrs_tpu_torch.accel import treelet as tl
 
-    t_k, id_k = fam.trace(rays)
-    t_a, _ = fam.trace(rays, any_hit=True)
+    t_k, id_k = fam.trace(rays, False, clone(t_in), clone(id_in))
+    t_a, _ = fam.trace(rays, True, clone(t_in), clone(id_in))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    t_p, id_p = tl.trace_reference(fam, rays)
+    t_p, id_p = tl.trace_reference(fam, rays, t_in, id_in)
     end.record()
     torch.cuda.synchronize()
     hit_p = torch.isfinite(t_p)
@@ -883,52 +972,123 @@ def bvh_compare(fam, rays):
     return bad, err, int(hit_p.sum()), start.elapsed_time(end)
 
 
-def bvh_launch_bound(fam, planes, any_hit, rng):
+def seed_take(x, idx):
+    return None if x is None else x[idx]
+
+
+def k5_ms(fam, planes, any_hit, t_in, id_in, iters=5):
+    """K5's device ms a launch as the main path ran it: merging into a
+    fresh copy of the running hit each time (cuda_ms calls it iters + 1
+    times), since a launch merges in place."""
+    from pbrs_tpu_torch.accel import treelet as tl
+
+    seeds = iter([(clone(t_in), clone(id_in)) for _ in range(iters + 1)])
+    return cuda_ms(lambda: tl.trace_planes(fam, planes, any_hit,
+                                           *next(seeds)), iters)
+
+
+def bvh_launch_bound(fam, planes, any_hit, rng, t_in=None, id_in=None):
     """(bound ms, what binds, node tests, primitive tests) of one K5 launch:
-    28 B in and 8 B out a lane and the tables once, against the node and
-    primitive tests that the host walk of BVH_COUNT_SAMPLE of its lanes
-    needs, scaled to all of them."""
+    28 B in (36 with a running hit) and 8 B out a lane and the tables once,
+    against the node and primitive tests that the host walk of
+    BVH_COUNT_SAMPLE of its lanes needs, scaled to all of them."""
     from pbrs_tpu_torch.accel import treelet as tl
 
     n = planes.shape[1]
     idx = torch.from_numpy(rng.choice(n, min(n, BVH_COUNT_SAMPLE),
                                       replace=False)).to(planes.device)
     _, _, nodes, prims = tl.traverse_reference(
-        fam, planes_rays(planes[:, idx]), any_hit=any_hit)
+        fam, planes_rays(planes[:, idx]), any_hit, seed_take(t_in, idx),
+        seed_take(id_in, idx))
     scale = n / idx.numel()
     tables = 4 * (fam.nodes.numel() + fam.fields.numel()
                   + fam.slot_gid.numel())
-    ms, by = bound(n * (7 * 4 + 8) + tables,
+    lane_bytes = 7 * 4 + 8 + (0 if t_in is None else 8)
+    ms, by = bound(n * lane_bytes + tables,
                    scale * (nodes * NODE_OPS + prims * PRIM_OPS[fam.kind]))
     return ms, by, scale * nodes, scale * prims
 
 
-def replay_k1(label, launches, k1_report):
-    """Every K1 launch of a main-path sample (bank, counts, planes, any
-    hit) replayed against the plain version, closest and any hit each."""
-    bad = {"id": 0, "t": 0, "occlusion": 0}
-    for bank, counts, planes, _ in launches:
-        got, err, _ = k1_parity(bank, counts, planes_rays(planes))
+def replay_k1(label, launches, k1_report, rng):
+    """Every K1 launch of a main-path sample (packed bank, planes, any hit)
+    replayed against the plain version, closest and any hit each; then
+    K1's device time per launch on that bank (CUDA events over 5 replays of
+    each launch as it ran), its plain time and its bound, added to
+    k1_report's main-path lists."""
+    from pbrs_tpu_torch.accel import trace_kernel as tk
+
+    bad = {"id": 0, "t": 0, "t bits": 0, "occlusion": 0}
+    for flat, planes, _ in launches:
+        got, err, _ = k1_parity(flat, planes_rays(planes))
         bad = {k: bad[k] + got[k] for k in bad}
         k1_report["max_abs_err"] = max(k1_report["max_abs_err"], err)
-    bank, counts = launches[0][:2]
+    flat = launches[0][0]
     print(f"{label} main path, sample 0: {len(launches)} launches of "
-          f"{sorted({p.shape[1] for _, _, p, _ in launches})} lanes on a "
-          f"{bank.shape[0]}-row bank (counts {counts}), closest and any hit "
-          f"each; lanes differing: id {bad['id']}, t (rel>1e-6) {bad['t']}, "
-          f"occlusion {bad['occlusion']}")
+          f"{sorted({p.shape[1] for _, p, _ in launches})} lanes on a "
+          f"{sum(flat.counts)}-row bank (counts {flat.counts}, chunks "
+          f"{flat.chunks}, {4 * flat.packed.numel()} B packed), closest and "
+          f"any hit each; lanes differing: id {bad['id']}, t (rel>1e-6) "
+          f"{bad['t']}, t not bit-equal {bad['t bits']}, occlusion "
+          f"{bad['occlusion']}")
     if any(bad.values()):
         raise AssertionError(f"K1 disagrees with its plain version: {label}")
+    rows = []
+    for flat, planes, any_hit in launches:
+        ms = cuda_ms(lambda: tk.trace_planes(flat, planes, any_hit), 5)
+        plain_ms = cuda_ms(lambda: k1_reference(flat.bank, flat.counts,
+                                                planes_rays(planes)), 1)
+        b_ms, b_by, chunks, prims = k1_launch_bound(flat, planes, any_hit,
+                                                    rng)
+        at = at_claims(lambda: cuda_ms(
+            lambda: tk.trace_planes(flat, planes, any_hit), 5))
+        live = int((planes[6] > 0).sum())
+        rows.append((ms, plain_ms, b_ms, at))
+        for key, v in zip(("ms", "plain_ms", "bound_ms", "bound_by",
+                           "claims"), (ms, plain_ms, b_ms, b_by, at)):
+            k1_report["per"][key].append(v)
+        print(f"{label} launch {len(rows) - 1} "
+              f"{'any hit' if any_hit else 'closest'}: {planes.shape[1]} "
+              f"lanes, {live} live; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"{chunks / max(live, 1):.2f} chunk and "
+              f"{prims / max(live, 1):.2f} primitive tests a live lane; at "
+              f"{claims_text([at])}")
+    k = len(rows)
+    print(f"{label} on its {sum(flat.counts)}-row bank: {k} launches, "
+          f"kernel {sum(r[0] for r in rows) / k:.4f} ms a launch "
+          f"({sum(r[0] for r in rows):.4f} ms a sample), plain "
+          f"{sum(r[1] for r in rows) / k:.4f} ms, bound "
+          f"{sum(r[2] for r in rows) / k:.4f} ms; at "
+          f"{claims_text([r[3] for r in rows])}")
+
+
+def crafted_seed(t, ids, rng):
+    """A running hit per lane for K5's seeded walk: a miss, a hit nearer or
+    farther than the family's own (t, ids), or one at exactly its t with a
+    lower or a higher id (the flat-vs-family ties of the tracer)."""
+    n = t.shape[0]
+    dev = t.device
+    pick = torch.from_numpy(rng.integers(0, 5, n)).to(dev)
+    base = torch.where(torch.isfinite(t), t, torch.full_like(t, 5.0))
+    t_in = torch.stack([torch.full_like(t, float("inf")), base * 0.5,
+                        base * 2.0, base, base])
+    id_in = torch.tensor([-1, 1, 2, 0, 2**30], dtype=torch.int32,
+                         device=dev)[pick]
+    return t_in.gather(0, pick[None]).squeeze(0).contiguous(), id_in
 
 
 def phase_bvh(dev, rng, k1_report):
     """K5 vs its plain version on the card: random rays against the
     mesh_ball(levels=5) triangles, everything's quads, 2048 random spheres
-    and 2048 random disks, then every K5 and K1 launch of one sample of
-    each mesh scene's main path at full width, replayed against the plain
-    versions. K5's device time, plain time and bound per launch over those
-    launches; K5's time at 2^20 mesh_ball camera + bounce-1 lanes; K1's
-    time per launch on everything's bank beside Cornell's."""
+    and 2048 random disks, each unseeded and seeded with a crafted running
+    hit (ties at equal t included), then every K5 and K1 launch of one
+    sample of each mesh scene's main path at full width (K5 seeded with the
+    running hit it was handed), replayed against the plain versions. K5's
+    device time, plain time and bound per launch over those launches; K5's
+    time at 2^20 mesh_ball camera + bounce-1 lanes; K1's time, plain time
+    and bound per launch on each bank; K1 on everything's bank beside
+    Cornell's, and everything's 1005 spheres as a K5 sphere family beside
+    K1 on the same planes."""
     from pbrs_tpu_torch.accel import trace_kernel as tk
     from pbrs_tpu_torch.accel import treelet as tl
 
@@ -963,53 +1123,69 @@ def phase_bvh(dev, rng, k1_report):
          box_rays(rng, BVH_SET, -12, 12, dev, 10.0)),
     ]
     for label, fam, rays in sets:
-        bad, err, hits, _ = bvh_compare(fam, rays)
-        report["max_abs_err"] = max(report["max_abs_err"], err)
-        print(f"phase 10 K5 {label}, random rays: {BVH_SET} rays, {hits} "
-              f"hits, {fam.n_prims} prims ({fam.n_nodes} nodes, depth "
-              f"{fam.depth}, {fam.builder} builder); lanes differing: t "
-              f"{bad['t']}, id {bad['id']}, hit mask {bad['hit']}, any-hit "
-              f"mask {bad['any-hit']}; max |dt| {err:.3g}")
-        if any(bad.values()):
-            raise AssertionError(f"K5 disagrees with its plain version on "
-                                 f"{label}")
-    # Every K5 launch of the main paths' sample 0, at full width: parity,
-    # device time (CUDA events over 5 replays), plain time and bound.
-    per = {"ms": [], "plain_ms": [], "bound_ms": [], "bound_by": []}
+        t_p, id_p = tl.trace_reference(fam, rays)
+        t_in, id_in = crafted_seed(t_p, id_p, rng)
+        ties = int((torch.isfinite(t_p) & (t_in == t_p)).sum())
+        for seeded, seed in (("unseeded", (None, None)),
+                             (f"seeded ({ties} ties at equal t)",
+                              (t_in, id_in))):
+            bad, err, hits, _ = bvh_compare(fam, rays, *seed)
+            report["max_abs_err"] = max(report["max_abs_err"], err)
+            print(f"phase 10 K5 {label}, random rays, {seeded}: {BVH_SET} "
+                  f"rays, {hits} hits, {fam.n_prims} prims ({fam.n_nodes} "
+                  f"nodes in {fam.n_pairs} child pairs, depth {fam.depth}, "
+                  f"{fam.builder} builder); lanes differing: t {bad['t']}, "
+                  f"id {bad['id']}, hit mask {bad['hit']}, any-hit mask "
+                  f"{bad['any-hit']}; max |dt| {err:.3g}")
+            if any(bad.values()):
+                raise AssertionError(f"K5 disagrees with its plain version "
+                                     f"on {label}, {seeded}")
+    # Every K5 launch of the main paths' sample 0, at full width, with the
+    # running hit it was handed: parity, device time (CUDA events over 5
+    # replays), plain time and bound.
+    per = {"ms": [], "plain_ms": [], "bound_ms": [], "bound_by": [],
+           "claims": []}
     for name, seen in launches.items():
         fam = fams[name]
         bad = {"t": 0, "id": 0, "hit": 0, "any-hit": 0}
         rows = []
-        for _, planes, any_hit in seen["k5"]:
-            got, err, hits, plain_ms = bvh_compare(fam, planes_rays(planes))
+        for _, planes, any_hit, t_in, id_in in seen["k5"]:
+            got, err, hits, plain_ms = bvh_compare(fam, planes_rays(planes),
+                                                   t_in, id_in)
             bad = {k: bad[k] + got[k] for k in bad}
             report["max_abs_err"] = max(report["max_abs_err"], err)
-            ms = cuda_ms(lambda: tl.trace_planes(fam, planes, any_hit), 5)
+            ms = k5_ms(fam, planes, any_hit, t_in, id_in)
             b_ms, b_by, nodes, prims = bvh_launch_bound(fam, planes, any_hit,
-                                                        rng)
+                                                        rng, t_in, id_in)
             n = planes.shape[1]
-            rows.append((any_hit, int((planes[6] > 0).sum()), hits, ms,
-                         plain_ms, b_ms, nodes / n, prims / n))
-            for k, v in zip(("ms", "plain_ms", "bound_ms", "bound_by"),
-                            (ms, plain_ms, b_ms, b_by)):
+            walked = (planes[6] > 0) & ~(torch.isfinite(t_in) if any_hit
+                                         else torch.zeros_like(planes[6],
+                                                               dtype=bool))
+            at = at_claims(lambda: k5_ms(fam, planes, any_hit, t_in, id_in))
+            rows.append((any_hit, int((planes[6] > 0).sum()),
+                         int(walked.sum()), hits, ms, plain_ms, b_ms,
+                         nodes / n, prims / n, at))
+            for k, v in zip(("ms", "plain_ms", "bound_ms", "bound_by",
+                             "claims"), (ms, plain_ms, b_ms, b_by, at)):
                 per[k].append(v)
         n = seen["k5"][0][1].shape[1]
         print(f"phase 10 K5 {name} main path, sample 0: {len(rows)} launches "
               f"({sum(not r[0] for r in rows)} closest, "
-              f"{sum(r[0] for r in rows)} any hit) of {n} lanes; lanes "
-              f"differing: t {bad['t']}, id {bad['id']}, hit mask "
-              f"{bad['hit']}, any-hit mask {bad['any-hit']}")
-        for i, (any_hit, live, hits, ms, plain_ms, b_ms, nd, pr) in \
-                enumerate(rows):
+              f"{sum(r[0] for r in rows)} any hit) of {n} lanes, seeded with "
+              f"K1's hit; lanes differing: t {bad['t']}, id {bad['id']}, hit "
+              f"mask {bad['hit']}, any-hit mask {bad['any-hit']}")
+        for i, (any_hit, live, walked, hits, ms, plain_ms, b_ms, nd,
+                pr, at) in enumerate(rows):
             print(f"phase 10 K5 {name} launch {i} "
                   f"{'any hit' if any_hit else 'closest'}: {live} live lanes, "
-                  f"{hits} hits; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {b_ms:.4f} ms; {nd:.2f} node and {pr:.2f} primitive "
-                  f"tests a lane")
+                  f"{walked} walked, {hits} hits; kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms; {nd:.2f} node and "
+                  f"{pr:.2f} primitive tests a lane; at {claims_text([at])}")
         print(f"phase 10 K5 {name} per sample: kernel "
-              f"{sum(r[3] for r in rows):.4f} ms, plain "
-              f"{sum(r[4] for r in rows):.4f} ms, bound "
-              f"{sum(r[5] for r in rows):.4f} ms")
+              f"{sum(r[4] for r in rows):.4f} ms, plain "
+              f"{sum(r[5] for r in rows):.4f} ms, bound "
+              f"{sum(r[6] for r in rows):.4f} ms; a launch at "
+              f"{claims_text([r[9] for r in rows])}")
         if any(bad.values()):
             raise AssertionError(f"K5 disagrees with its plain version on "
                                  f"{name}'s main path")
@@ -1020,30 +1196,44 @@ def phase_bvh(dev, rng, k1_report):
     print(f"phase 10 K5 mean over the {k} launches of both main paths: "
           f"kernel {report['ms']:.4f} ms, plain {report['plain_ms']:.4f} ms, "
           f"bound {report['bound_ms']:.4f} ms (by {report['bound_by']} in "
-          f"{per['bound_by'].count(report['bound_by'])} of {k})")
+          f"{per['bound_by'].count(report['bound_by'])} of {k}); at "
+          f"{claims_text(per['claims'])}")
     # K5 at 2^20 lanes: mesh_ball's camera and bounce-1 closest-hit lanes.
     fam = fams["mesh_ball"]
-    closest = [planes for _, planes, a in launches["mesh_ball"]["k5"]
+    closest = [planes for _, planes, a, _, _ in launches["mesh_ball"]["k5"]
                if not a]
     both = torch.cat(closest[:2], dim=1)
     big = both[:, torch.arange(N_RAYS, device=dev) % both.shape[1]]
     big = big.contiguous()
     print(f"phase 10 K5 time at {N_RAYS} rays (mesh_ball camera + bounce-1 "
-          f"closest hit): kernel "
+          f"closest hit, unseeded): kernel "
           f"{cuda_ms(lambda: tl.trace_planes(fam, big), 20):.4f} ms")
     # K1 on every flat-bank launch of both main paths.
     for name, seen in launches.items():
-        replay_k1(f"phase 10 K1 {name}", seen["k1"], k1_report)
+        replay_k1(f"phase 10 K1 {name}", seen["k1"], k1_report, rng)
     ev = launches["everything"]["k1"]
-    cb_bank, cb_counts = tk.prim_scalars(cornell(8).to(dev).geom)
-    k1_ev = sum(cuda_ms(lambda: tk.trace_planes(b, c, p, a), 5)
-                for b, c, p, a in ev)
-    k1_cb = sum(cuda_ms(lambda: tk.trace_planes(cb_bank, cb_counts, p, a), 5)
-                for _, _, p, a in ev)
+    cb_flat = tk.pack_bank(*tk.prim_scalars(cornell(8).to(dev).geom))
+    k1_ev = sum(cuda_ms(lambda: tk.trace_planes(f, p, a), 5)
+                for f, p, a in ev)
+    k1_cb = sum(cuda_ms(lambda: tk.trace_planes(cb_flat, p, a), 5)
+                for _, p, a in ev)
     print(f"phase 10 K1 time per launch over everything's sample 0 ("
-          f"{len(ev)} launches of {ev[0][2].shape[1]} lanes): everything's "
-          f"bank ({ev[0][0].shape[0]} rows) {k1_ev / len(ev):.4f} ms, "
-          f"Cornell's bank ({sum(cb_counts)} rows) {k1_cb / len(ev):.4f} ms")
+          f"{len(ev)} launches of {ev[0][1].shape[1]} lanes): everything's "
+          f"bank ({sum(ev[0][0].counts)} rows) {k1_ev / len(ev):.4f} ms, "
+          f"Cornell's bank ({sum(cb_flat.counts)} rows) "
+          f"{k1_cb / len(ev):.4f} ms")
+    # The crossover of TREELET_THRESHOLD: everything's 1005 spheres as a K5
+    # sphere family, on the planes of the same K1 launches.
+    geom = mesh_scene("everything").geom
+    sph = tl.sphere_tracer(geom.sph_center.numpy(), geom.sph_radius.numpy(),
+                           0, device=dev)
+    k5_sph = sum(cuda_ms(lambda: tl.trace_planes(sph, p, a), 5)
+                 for _, p, a in ev)
+    print(f"phase 10 crossover on everything's sample 0 ({len(ev)} launches): "
+          f"its {sph.n_prims} spheres as a K5 sphere family ({sph.n_nodes} "
+          f"nodes, depth {sph.depth}) {k5_sph / len(ev):.4f} ms a launch, "
+          f"K1 on its {sum(ev[0][0].counts)}-row bank "
+          f"{k1_ev / len(ev):.4f} ms a launch")
     return report
 
 
@@ -1118,7 +1308,7 @@ def phase_mesh_main(dev, smi):
         if max(sums) - min(sums) > GOLDEN_REL_TOL * abs(sums[0]):
             raise AssertionError(f"{name}: routes disagree on the checksum: "
                                  f"{sums}")
-    return {"trace_bvh": tl.LAUNCHES}
+    return {"trace_bvh": tl.LAUNCHES, "trace_flat": tk.LAUNCHES}
 
 
 # ----------------- K4: the shade kernel, the PBRT interior ------------------
@@ -1252,6 +1442,18 @@ def ptxas_spills(function):
     raise AssertionError(f"no ptxas report for {function}")
 
 
+def bvh_stack_frames():
+    """(function, stack frame, spill store, spill load bytes) that ptxas
+    reported for every K5 instantiation (phase 1's log)."""
+    from pbrs_tpu_torch import kernels
+
+    names = [line.split("'")[1] for line in
+             kernels.ptxas_log_path().read_text().splitlines()
+             if "Compiling entry function" in line
+             and "trace_bvh_kernel" in line]
+    return [(name, *ptxas_spills(name)) for name in names]
+
+
 def k4_kernel_line(phase, name, n_slots, tab):
     """Registers, spills, resident warps an SM and staged output planes of
     the K4 kernel that runs on these tables."""
@@ -1371,34 +1573,40 @@ def phase_wave(dev, seen, rng="pcg", nee_mode="twoarm", phase=13):
     return report
 
 
-def phase_interior_traces(seen, k1_report, k5_report):
+def phase_interior_traces(seen, k1_report, k5_report, rng):
     """Every K1 and K5 launch of sample 0 of the interior main path (the
     sample whose K4 launches phase 13 replays) against the plain versions:
-    K1 on the flat bank, K5 on the triangle family, closest hit and the
+    K1 on the flat bank, with its time, plain time and bound a launch, K5
+    on the triangle family seeded with K1's hit, closest hit and the
     concatenated shadow batches, with K5's device time a launch."""
     from pbrs_tpu_torch.accel import treelet as tl
 
     if not seen["k1"] or not seen["k5"]:
         raise AssertionError("the interior main path launched no K1 or K5")
-    replay_k1("phase 13 K1 interior", seen["k1"], k1_report)
+    replay_k1("phase 13 K1 interior", seen["k1"], k1_report, rng)
     bad = {"t": 0, "id": 0, "hit": 0, "any-hit": 0}
-    ms_all, plain_all = 0.0, 0.0
-    for i, (fam, planes, any_hit) in enumerate(seen["k5"]):
-        got, err, hits, plain_ms = bvh_compare(fam, planes_rays(planes))
+    ms_all, plain_all, claims = 0.0, 0.0, []
+    for i, (fam, planes, any_hit, t_in, id_in) in enumerate(seen["k5"]):
+        got, err, hits, plain_ms = bvh_compare(fam, planes_rays(planes),
+                                               t_in, id_in)
         bad = {k: bad[k] + got[k] for k in bad}
         k5_report["max_abs_err"] = max(k5_report["max_abs_err"], err)
-        ms = cuda_ms(lambda: tl.trace_planes(fam, planes, any_hit), 5)
+        ms = k5_ms(fam, planes, any_hit, t_in, id_in)
         ms_all, plain_all = ms_all + ms, plain_all + plain_ms
+        claims.append(at_claims(
+            lambda: k5_ms(fam, planes, any_hit, t_in, id_in)))
         print(f"phase 13 K5 interior launch {i} "
               f"{'any hit' if any_hit else 'closest'}: {planes.shape[1]} "
               f"lanes, {int((planes[6] > 0).sum())} live, {hits} hits, "
               f"{fam.n_prims} prims; lanes differing: t {got['t']}, id "
               f"{got['id']}, hit mask {got['hit']}, any-hit mask "
-              f"{got['any-hit']}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"{got['any-hit']}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms; at {claims_text(claims[-1:])}")
     print(f"phase 13 K5 interior main path, sample 0: {len(seen['k5'])} "
           f"launches; lanes differing: t {bad['t']}, id {bad['id']}, hit "
           f"mask {bad['hit']}, any-hit mask {bad['any-hit']}; per sample: "
-          f"kernel {ms_all:.4f} ms, plain {plain_all:.4f} ms")
+          f"kernel {ms_all:.4f} ms, plain {plain_all:.4f} ms; a launch at "
+          f"{claims_text(claims)}")
     if any(bad.values()):
         raise AssertionError("K5 disagrees with its plain version on the "
                              "interior's main path")
@@ -2246,7 +2454,8 @@ def main():
     k5_launches = run(phase_mesh_main, dev, smi)
     k4_launches, seen = run(phase_interior_main, dev, smi)
     k4 = run(phase_wave, dev, seen)
-    run(phase_interior_traces, seen, k1, k5)
+    run(phase_interior_traces, seen, k1, k5, rng)
+    k1_main_path_means(k1)
     del seen
     run(phase_wave_golden, dev)
     run(phase_interior_1080, dev, smi)
@@ -2269,7 +2478,8 @@ def main():
     kernels = [
         kernel_entry("trace_flat", "trace_flat.cu",
                      "pbrs_tpu/accel/trace_pallas.py:127",
-                     launches["trace_flat"], k1),
+                     k5_launches["trace_flat"] + k4_launches["trace_flat"],
+                     k1),
         kernel_entry("fused_bounce", "fused_bounce.cu", k2_src,
                      launches["fused_bounce"], k2),
         kernel_entry("fused_single_lobe", "fused_single_lobe.cu", k3_src,

@@ -9,21 +9,32 @@ On Hopper there are no 64-slot treelets, no bf16 3-split tables and no
 ``mode``: the TPU tracer's treelets, sort keys, one-hot MXU gathers, chunk
 DMA and rowdense/rowdyn/rowdynh variants were ways to avoid per-ray
 pointer chasing on a TPU. K5 (csrc/trace_bvh.cu) walks the binary SAH BVH
-of accel/bvh.py per thread instead, one ray a thread, with a stack. The
-family tracer holds that BVH as a node table, the family's field rows
-(treelet.py's field builders) in leaf order and a slot -> global id map.
+of accel/bvh.py per thread instead, live rays packed into full warps, with
+a stack in shared memory. The family tracer holds that BVH as a table of
+child-pair nodes (both children's boxes and references in 64 bytes, one
+fetch a step), the family's field rows (treelet.py's field builders) in
+leaf order and a slot -> global id map.
+
+A trace may take the query's running hit (t_in, id_in: the flat bank's, or
+an earlier family's) and returns the merged result, the family's hit where
+it is strictly closer, else the running one: the merge of
+trace_kernel.Tracer. The kernel starts its walk from that hit, culls every
+node beyond it and merges into the running hit's tensors in place; with
+any_hit a lane whose running hit is finite is not walked at all.
 
 ``trace_reference``, the plain version, is a brute-force sweep of every
 primitive of the family in chunks of rays, with the kernel's per-primitive
-arithmetic and tie rule; ``traverse_reference`` repeats the kernel's walk
-on the host, to count the node and primitive tests a ray batch needs and
-to check the walk's culling against the sweep. CUDA tensors launch K5, CPU
-tensors take trace_reference; neither falls back to the other.
+arithmetic and tie rule, merged with the running hit; ``traverse_reference``
+repeats the kernel's walk over the child-pair table on the host, to count
+the node and primitive tests a ray batch needs and to check the walk's
+culling against the sweep. CUDA tensors launch K5, CPU tensors take
+trace_reference; neither falls back to the other.
 
-Tie rule (both versions): on equal t the lowest global id wins, so the
-result does not depend on the order of traversal. The TPU tracer keeps the
-first-visited treelet's hit instead, so ids can differ from pbrs_tpu's on
-exact-t ties (coplanar faces of abutting cuboids).
+Tie rule (both versions): on equal t the running hit stays, and among the
+family's primitives the lowest global id wins, so the result does not
+depend on the order of traversal. The TPU tracer keeps the first-visited
+treelet's hit instead, so ids can differ from pbrs_tpu's on exact-t ties
+(coplanar faces of abutting cuboids).
 """
 
 from __future__ import annotations
@@ -44,10 +55,12 @@ T_MIN = ray_mod.T_MIN
 BIG = 3.0e38
 INF = float("inf")
 INT_MAX = 2**31 - 1
-# Per-thread stack entries of the kernel (csrc/trace_bvh.cu MAX_STACK). A
-# walk pushes at most one entry per tree level, and bvh.build_bvh stops
-# splitting below depth 61, so every tree it makes fits.
-MAX_STACK = 64
+# Floats of one child-pair node: two boxes (lo xyz, hi xyz), then the left
+# and right child's (ref, count) as int32 bits.
+PAIR_COLS = 16
+# Primitives a leaf of the pair table holds at most (csrc/trace_bvh.cu
+# LEAF_MAX: a stack entry packs a leaf as ~(first * 16 + count)).
+LEAF_MAX = 15
 # Conservative node tests. Boxes grow on the host by BOX_PAD times the
 # family's largest coordinate, and the slab interval [t_enter, t_exit]
 # widens by SLAB_EPS of each end's magnitude, so rounding in the slab test
@@ -173,16 +186,86 @@ def _ray_parts(rays):
 # ------------------------------- the tracer -------------------------------
 
 
+def _pair_table(tree, pad):
+    """The child-pair node table of a FlatBVH: [1 + interior nodes, 16]
+    float32, and the walk's stack depth. Pair 0 holds the root beside a NaN
+    box (which no slab test passes); pair 1 + k the two children of the
+    k-th interior node in DFS order. A child is (first slot, prim count >
+    0) for a leaf and (its pair index, 0) for an interior node; boxes grow
+    outward by `pad`. A leaf above LEAF_MAX primitives (a builder leaves
+    any count below depth 60) becomes pairs of halves in its own box,
+    appended after the rest. A child's pair index is above its parent's."""
+    nn = tree.bbox_min.shape[0]
+    leaf = tree.is_leaf.astype(bool)
+    inner = np.nonzero(~leaf)[0]
+    pair_of = np.zeros(nn, np.int64)
+    pair_of[inner] = 1 + np.arange(inner.size)
+    lo = (tree.bbox_min - pad).astype(np.float32)
+    hi = (tree.bbox_max + pad).astype(np.float32)
+    # The right child of interior node i is the left child's miss link.
+    left = inner + 1
+    right = tree.skip[left].astype(np.int64)
+    table = np.zeros((1 + inner.size, PAIR_COLS), np.float32)
+    refs = table[:, 12:16].view(np.int32)
+
+    def put(rows, child, col):
+        table[rows, 6 * col:6 * col + 3] = lo[child]
+        table[rows, 6 * col + 3:6 * col + 6] = hi[child]
+        refs[rows, 2 * col] = np.where(leaf[child], tree.first[child],
+                                       pair_of[child])
+        refs[rows, 2 * col + 1] = np.where(leaf[child], tree.count[child], 0)
+
+    put(np.zeros(1, np.int64), np.zeros(1, np.int64), 0)
+    table[0, 6:12] = np.nan
+    put(1 + np.arange(inner.size), left, 0)
+    put(1 + np.arange(inner.size), right, 1)
+    extra = []
+
+    def split(first, count, box):
+        if count <= LEAF_MAX:
+            return first, count
+        k = len(extra)
+        extra.append(None)
+        half = count // 2
+        kids = (split(first, half, box), split(first + half, count - half,
+                                              box))
+        extra[k] = (box, kids)
+        return table.shape[0] + k, 0
+
+    for pair, side in zip(*np.nonzero(refs[:, 1::2] > LEAF_MAX)):
+        refs[pair, 2 * side:2 * side + 2] = split(
+            int(refs[pair, 2 * side]), int(refs[pair, 2 * side + 1]),
+            table[pair, 6 * side:6 * side + 6].copy())
+    if extra:
+        more = np.zeros((len(extra), PAIR_COLS), np.float32)
+        more_refs = more[:, 12:16].view(np.int32)
+        for k, (box, kids) in enumerate(extra):
+            more[k, 0:6] = more[k, 6:12] = box
+            more_refs[k] = (*kids[0], *kids[1])
+        table = np.concatenate([table, more])
+        refs = table[:, 12:16].view(np.int32)
+    # Stack entries a walk needs: one for each pair above it on its path.
+    level = np.zeros(table.shape[0], np.int64)
+    for p in range(table.shape[0]):
+        for side in (0, 1):
+            if refs[p, 2 * side + 1] == 0 and not (p == 0 and side == 1):
+                level[refs[p, 2 * side]] = level[p] + 1
+    return table, max(int(level.max()), 1)
+
+
 class FamilyTracer:
     """Closest-hit / any-hit over one primitive family through its BVH.
 
     Tables (on `device`):
-      nodes  [NN, 8] float32, DFS order: the box (lo xyz, hi xyz, padded
-             outward by BOX_PAD), then two int32 stored as float bits: a leaf
-             holds (first slot, prim count > 0), an interior node (right
-             child, 0); its left child is the next node.
+      nodes  [n_pairs, 16] float32, the child-pair table (_pair_table): per
+             node the left and right child's box (lo xyz, hi xyz, padded
+             outward by BOX_PAD), then int32 bits (left ref, left count,
+             right ref, right count): a leaf child is (first slot, 1 to
+             LEAF_MAX prims), an interior one (its pair index, 0). Pair 0
+             holds the root.
       fields [P, FIELD_STRIDE] float32: the field rows in leaf order.
       slot_gid [P] int32: leaf-order slot -> global prim id.
+    stack_depth is the walk's stack entries a ray: one per tree level.
     """
 
     def __init__(self, kind, fields, bbox_lo, bbox_hi, global_base=0,
@@ -198,20 +281,11 @@ class FamilyTracer:
         hi = np.asarray(bbox_hi, np.float32)
         tree = bvh_mod.build_bvh(lo, hi)
         self.depth, self.builder = tree.depth, tree.builder
-        nn = tree.bbox_min.shape[0]
-        self.n_nodes = nn
+        self.n_nodes = tree.bbox_min.shape[0]
         pad = np.float32(BOX_PAD * max(float(np.abs(lo).max()),
                                        float(np.abs(hi).max()), 1.0))
-        nodes = np.zeros((nn, 8), np.float32)
-        nodes[:, 0:3] = tree.bbox_min - pad
-        nodes[:, 3:6] = tree.bbox_max + pad
-        leaf = tree.is_leaf.astype(bool)
-        # The right child of interior node i is the left child's miss link.
-        right = np.where(leaf, 0, tree.skip[np.minimum(np.arange(nn) + 1,
-                                                       nn - 1)])
-        meta = nodes[:, 6:8].view(np.int32)
-        meta[:, 0] = np.where(leaf, tree.first, right)
-        meta[:, 1] = np.where(leaf, tree.count, 0)
+        nodes, self.stack_depth = _pair_table(tree, pad)
+        self.n_pairs = nodes.shape[0]
         order = tree.prim_order
         table = np.zeros((p, FIELD_STRIDE[kind]), np.float32)
         table[:, :nf] = fields[order]
@@ -225,25 +299,36 @@ class FamilyTracer:
         self.fields = torch.from_numpy(table).to(device)
         self.slot_gid = torch.from_numpy(gid.astype(np.int32)).to(device)
 
-    def trace(self, rays, any_hit: bool = False):
-        """(t [N], global prim id [N] int32); inf / -1 on a miss. CUDA
-        tensors launch K5, CPU tensors take trace_reference. any_hit stops a
-        ray at its first hit: t is then finite exactly where the closest
-        hit's t is."""
+    def trace(self, rays, any_hit: bool = False, t_in=None, id_in=None):
+        """(t [N], global prim id [N] int32); inf / -1 on a miss, merged
+        with the running hit (t_in, id_in) when given (in place, on CUDA
+        tensors). CUDA tensors launch K5, CPU tensors take trace_reference.
+        any_hit stops a ray at its first hit: t is then finite exactly where
+        the closest hit's t is."""
         kind = rays.origin.device.type
         if kind == "cpu":
-            return trace_reference(self, rays)
+            return trace_reference(self, rays, t_in, id_in)
         if kind != "cuda":
             raise ValueError(f"no trace backend for device {rays.origin.device}")
-        return trace_planes(self, ray_mod.to_planes(rays), any_hit)
+        return trace_planes(self, ray_mod.to_planes(rays), any_hit, t_in,
+                            id_in)
 
 
-def trace_reference(tracer: FamilyTracer, rays):
+def merge(t_in, id_in, t, idx):
+    """The running hit merged with a family's: the family's where strictly
+    closer (on equal t the running hit stays)."""
+    if t_in is None:
+        return t, idx
+    closer = t < t_in
+    return torch.where(closer, t, t_in), torch.where(closer, idx, id_in)
+
+
+def trace_reference(tracer: FamilyTracer, rays, t_in=None, id_in=None):
     """Plain version of K5: every ray against every primitive of the family
-    in chunks of rays, the lowest global id winning on equal t. (t [N],
-    global id [N] int32), inf / -1 on a miss; dead rays (t_max <= 0) miss.
-    Any hit is the same function: its t is finite exactly where this t
-    is."""
+    in chunks of rays, the lowest global id winning on equal t, merged with
+    the running hit (t_in, id_in) when given. (t [N], global id [N] int32),
+    inf / -1 on a miss; dead rays (t_max <= 0) keep the running hit. Any
+    hit is the same function: its t is finite exactly where this t is."""
     n = rays.origin.shape[0]
     dev = rays.origin.device
     t_out = torch.full((n,), INF, device=dev)
@@ -261,26 +346,26 @@ def trace_reference(tracer: FamilyTracer, rays):
         hit = t_min < BIG
         t_out[s:s + chunk] = torch.where(hit, t_min, INF)
         id_out[s:s + chunk] = torch.where(hit, g, -1).to(torch.int32)
-    return t_out, id_out
+    return merge(t_in, id_in, t_out, id_out)
 
 
-def _slab(nodes, i, parts, inv, t_max, t_best):
-    """The kernel's conservative node test of node i[m] for rays m:
-    (pass [m], t_enter [m])."""
+def _slab(box, parts, inv, t_max, t_best):
+    """The kernel's conservative slab test of boxes box[m] (lo xyz, hi xyz)
+    for rays m: (pass [m], t_enter [m]). NaN-dropping fmin / fmax, as the
+    kernel's (a box of NaNs never passes)."""
     rox, roy, roz = parts[0], parts[1], parts[2]
-    box = nodes[i]
     tx0 = (box[:, 0] - rox) * inv[0]
     tx1 = (box[:, 3] - rox) * inv[0]
     ty0 = (box[:, 1] - roy) * inv[1]
     ty1 = (box[:, 4] - roy) * inv[1]
     tz0 = (box[:, 2] - roz) * inv[2]
     tz1 = (box[:, 5] - roz) * inv[2]
-    t_enter = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
-                                          torch.minimum(ty0, ty1)),
-                            torch.minimum(tz0, tz1))
-    t_exit = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
-                                         torch.maximum(ty0, ty1)),
-                           torch.maximum(tz0, tz1))
+    t_enter = torch.fmax(torch.fmax(torch.fmin(tx0, tx1),
+                                    torch.fmin(ty0, ty1)),
+                         torch.fmin(tz0, tz1))
+    t_exit = torch.fmin(torch.fmin(torch.fmax(tx0, tx1),
+                                   torch.fmax(ty0, ty1)),
+                        torch.fmax(tz0, tz1))
     lo = torch.tensor(1.0 - SLAB_EPS)
     hi = torch.tensor(1.0 + SLAB_EPS)
     te = t_enter * torch.where(t_enter > 0.0, lo, hi)
@@ -289,46 +374,51 @@ def _slab(nodes, i, parts, inv, t_max, t_best):
     return ok, te
 
 
-def traverse_reference(tracer: FamilyTracer, rays, any_hit: bool = False):
-    """The kernel's walk repeated on the host, all rays in lockstep: near
-    child first, far child pushed with its t_enter, a popped node skipped
-    when its t_enter is above the best t. Returns (t, global id, node tests,
+def traverse_reference(tracer: FamilyTracer, rays, any_hit: bool = False,
+                       t_in=None, id_in=None):
+    """The kernel's walk over the child-pair table repeated on the host,
+    all rays in lockstep: both children of a node tested from the one
+    pair, the nearer hit child taken and the farther pushed with its
+    t_enter, a popped entry skipped when its t_enter is above the best t,
+    which starts at the running hit. Returns (t, global id, node tests,
     primitive tests); t and id equal trace_reference's, the counts are the
-    work K5 does for these rays."""
+    box and primitive tests K5 does for these rays (two box tests a
+    pair)."""
     rays = rays.to("cpu")
-    nodes = tracer.nodes.cpu()
-    meta = nodes[:, 6:8].contiguous().view(torch.int32).to(torch.int64)
+    pairs = tracer.nodes.cpu()
+    refs = pairs[:, 12:16].contiguous().view(torch.int32).to(torch.int64)
     fields = tracer.fields.cpu()
     slot_gid = tracer.slot_gid.cpu()
     n = rays.origin.shape[0]
     parts = _ray_parts(rays)
     inv = [1.0 / torch.where(x == 0.0, 1e-30, x) for x in parts[3:6]]
     t_max = parts[6]
-    t_best = torch.full((n,), BIG)
+    seed = torch.full((n,), INF) if t_in is None else t_in.cpu()
+    t_best = torch.where(seed < BIG, seed, torch.tensor(BIG))
     g_best = torch.full((n,), -1, dtype=torch.int64)
-    node = torch.zeros(n, dtype=torch.int64)
-    stack_n = torch.zeros(n, MAX_STACK, dtype=torch.int64)
-    stack_t = torch.zeros(n, MAX_STACK)
+    ref = torch.zeros(n, dtype=torch.int64)
+    cnt = torch.zeros(n, dtype=torch.int64)
+    depth = tracer.stack_depth
+    stack_ref = torch.zeros(n, depth, dtype=torch.int64)
+    stack_cnt = torch.zeros(n, depth, dtype=torch.int64)
+    stack_t = torch.zeros(n, depth)
     sp = torch.zeros(n, dtype=torch.int64)
-    live = t_max > 0.0
-    node_tests = int(live.sum())
-    active, _ = _slab(nodes, node, parts, inv, t_max, t_best)
-    active &= live
-    prim_tests = 0
+    active = t_max > 0.0
+    if any_hit:
+        active &= ~(seed < BIG)
+    node_tests = prim_tests = 0
     while bool(active.any()):
         m = torch.nonzero(active).squeeze(1)
-        sub = lambda x: x[m]  # noqa: E731
-        p = [sub(x) for x in parts]
-        iv = [sub(x) for x in inv]
-        nd = node[m]
-        first, count = meta[nd, 0], meta[nd, 1]
-        leaf = count > 0
-        tb, gb = t_best[m], g_best[m]
+        p = [x[m] for x in parts]
+        iv = [x[m] for x in inv]
+        rf, ct, tb, gb = ref[m], cnt[m], t_best[m], g_best[m]
+        leaf = ct > 0
         done = torch.zeros_like(leaf)
-        for k in range(bvh_mod.MAX_LEAF):
-            valid = leaf & (k < count) & ~done
+        # A leaf: its primitives, the lowest global id winning on equal t.
+        for k in range(int(ct.max())):
+            valid = leaf & (k < ct) & ~done
             prim_tests += int(valid.sum())
-            slot = torch.where(valid, first + k, 0)
+            slot = torch.where(valid, rf + k, 0)
             row = fields[slot]
             t, ok = prim_test(tracer.kind, lambda j: row[:, j], *p)
             g = slot_gid[slot].to(torch.int64)
@@ -339,56 +429,63 @@ def traverse_reference(tracer: FamilyTracer, rays, any_hit: bool = False):
                 take &= (t < tb) | ((t == tb) & (g < gb))
             tb = torch.where(take, t, tb)
             gb = torch.where(take, g, gb)
+        # An interior pair: both children from one node.
         inner = ~leaf
-        left = torch.where(inner, nd + 1, 0)
-        right = torch.where(inner, first, 0)
         node_tests += 2 * int(inner.sum())
-        hl, tl = _slab(nodes, left, p, iv, p[6], tb)
-        hr, tr = _slab(nodes, right, p, iv, p[6], tb)
+        pr = pairs[torch.where(inner, rf, 0)]
+        rr = refs[torch.where(inner, rf, 0)]
+        hl, tl = _slab(pr[:, 0:6], p, iv, p[6], tb)
+        hr, tr = _slab(pr[:, 6:12], p, iv, p[6], tb)
         hl &= inner
         hr &= inner
         both = hl & hr
         near_l = tl <= tr
-        nxt = torch.where(hl & (~hr | near_l), left, right)
+        go_l = hl & (~hr | near_l)
+        nxt_ref = torch.where(go_l, rr[:, 0], rr[:, 2])
+        nxt_cnt = torch.where(go_l, rr[:, 1], rr[:, 3])
         # Push the far child of rays that hit both.
-        far = torch.where(near_l, right, left)
-        far_t = torch.where(near_l, tr, tl)
         sp_m = sp[m]
         rows = m[both]
-        stack_n[rows, sp_m[both]] = far[both]
-        stack_t[rows, sp_m[both]] = far_t[both]
+        far_l = both & ~near_l
+        stack_ref[rows, sp_m[both]] = torch.where(far_l, rr[:, 0],
+                                                  rr[:, 2])[both]
+        stack_cnt[rows, sp_m[both]] = torch.where(far_l, rr[:, 1],
+                                                  rr[:, 3])[both]
+        stack_t[rows, sp_m[both]] = torch.where(far_l, tl, tr)[both]
         sp_m = sp_m + both.to(torch.int64)
         go_on = hl | hr
         # Pop until an entry can still beat the best t.
         popping = ~go_on & ~done
-        for _ in range(MAX_STACK):
+        for _ in range(depth):
             popping &= sp_m > 0
             if not bool(popping.any()):
                 break
             sp_m = sp_m - popping.to(torch.int64)
-            top = torch.clamp_min(sp_m, 0)
-            e_n = stack_n[m, top]
-            e_t = stack_t[m, top]
-            found = popping & (e_t <= tb)
-            nxt = torch.where(found, e_n, nxt)
+            top = torch.clamp(sp_m, 0, depth - 1)
+            found = popping & (stack_t[m, top] <= tb)
+            nxt_ref = torch.where(found, stack_ref[m, top], nxt_ref)
+            nxt_cnt = torch.where(found, stack_cnt[m, top], nxt_cnt)
             go_on |= found
             popping &= ~found
         t_best[m], g_best[m] = tb, gb
-        node[m] = nxt
-        sp[m] = sp_m
+        ref[m], cnt[m], sp[m] = nxt_ref, nxt_cnt, sp_m
         active[m] = go_on & ~done
-    hit = t_best < BIG
-    return (torch.where(hit, t_best, INF),
-            torch.where(hit, g_best, -1).to(torch.int32), node_tests,
-            prim_tests)
+    fam = g_best >= 0
+    t = torch.where(fam, t_best, seed)
+    g = torch.where(fam, g_best, -1 if id_in is None else id_in.cpu().to(
+        torch.int64))
+    return t, g.to(torch.int32), node_tests, prim_tests
 
 
 # ------------------------------- CUDA kernel -------------------------------
 
 
-def trace_planes(tracer: FamilyTracer, planes, any_hit: bool = False):
+def trace_planes(tracer: FamilyTracer, planes, any_hit: bool = False,
+                 t_in=None, id_in=None):
     """Launch K5 on SoA ray planes [7, N] (ox, oy, oz, dx, dy, dz, t_max).
-    Returns (t [N] float32, global id [N] int32)."""
+    Returns (t [N] float32, global id [N] int32). Given the running hit
+    (t_in [N] float32, id_in [N] int32; both or neither), K5 merges its
+    family's hits into those two tensors in place and returns them."""
     global LAUNCHES
     if not (planes.is_cuda and planes.dtype == torch.float32
             and planes.dim() == 2 and planes.shape[0] == 7
@@ -396,31 +493,42 @@ def trace_planes(tracer: FamilyTracer, planes, any_hit: bool = False):
         raise ValueError("planes must be contiguous CUDA float32 [7, N], got "
                          f"{planes.dtype} {tuple(planes.shape)} on "
                          f"{planes.device}")
-    shapes = {"nodes": (torch.float32, (tracer.n_nodes, 8)),
-              "fields": (torch.float32,
+    n = planes.shape[1]
+    shapes = {"nodes": (tracer, torch.float32, (tracer.n_pairs, PAIR_COLS)),
+              "fields": (tracer, torch.float32,
                          (tracer.n_prims, FIELD_STRIDE[tracer.kind])),
-              "slot_gid": (torch.int32, (tracer.n_prims,))}
-    for name, (dtype, shape) in shapes.items():
-        tab = getattr(tracer, name)
+              "slot_gid": (tracer, torch.int32, (tracer.n_prims,))}
+    if (t_in is None) != (id_in is None):
+        raise ValueError("give both t_in and id_in, or neither")
+    if t_in is not None:
+        shapes["t_in"] = (t_in, torch.float32, (n,))
+        shapes["id_in"] = (id_in, torch.int32, (n,))
+    for name, (owner, dtype, shape) in shapes.items():
+        tab = getattr(owner, name) if owner is tracer else owner
         if not (tab.device == planes.device and tab.dtype == dtype
                 and tuple(tab.shape) == shape and tab.is_contiguous()):
-            raise ValueError(f"the tracer's {name} must be contiguous {dtype} "
-                             f"{shape} on {planes.device}, got {tab.dtype} "
+            raise ValueError(f"{name} must be contiguous {dtype} {shape} on "
+                             f"{planes.device}, got {tab.dtype} "
                              f"{tuple(tab.shape)} on {tab.device}")
-    max_stack = kernels.lib().pbrs_bvh_max_stack()
-    if tracer.depth > max_stack:
-        raise ValueError(f"a BVH of depth {tracer.depth} overflows the "
-                         f"kernel's {max_stack}-entry stack")
-    n = planes.shape[1]
-    t = torch.empty(n, dtype=torch.float32, device=planes.device)
-    ids = torch.empty(n, dtype=torch.int32, device=planes.device)
+    max_depth = kernels.lib().pbrs_bvh_max_stack_depth()
+    if tracer.stack_depth > max_depth:
+        raise ValueError(f"a BVH of depth {tracer.stack_depth} overflows the "
+                         f"{max_depth} stack entries shared memory holds")
+    if t_in is None:
+        t = torch.empty(n, dtype=torch.float32, device=planes.device)
+        ids = torch.empty(n, dtype=torch.int32, device=planes.device)
+    else:
+        t, ids = t_in, id_in
     if n == 0:
         return t, ids
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     rc = kernels.lib().pbrs_trace_bvh(
         tracer.nodes.data_ptr(), tracer.fields.data_ptr(),
-        tracer.slot_gid.data_ptr(), tracer.kind, planes.data_ptr(), n,
-        t.data_ptr(), ids.data_ptr(), int(any_hit), stream)
+        tracer.slot_gid.data_ptr(), tracer.kind, planes.data_ptr(),
+        0 if t_in is None else t_in.data_ptr(),
+        0 if id_in is None else id_in.data_ptr(), n, tracer.stack_depth,
+        kernels.TRACE_CLAIM[bool(any_hit)], t.data_ptr(), ids.data_ptr(),
+        int(any_hit), stream)
     kernels.check(rc, "trace_bvh")
     LAUNCHES += 1
     return t, ids

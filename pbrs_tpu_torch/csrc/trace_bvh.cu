@@ -6,38 +6,65 @@
 // _trace_blocks_rowdense). Contract of both: for each ray the closest hit
 // (or, with any_hit, a first hit) over one primitive family ->
 // (t, global prim id), inf / -1 on a miss; a ray with t_max <= 0 is dead
-// and writes inf / -1 without a walk. On equal t the lowest global id wins,
-// so the result does not depend on the walk's order and equals the plain
-// version's brute-force sweep (accel/treelet.py:trace_reference) bit for
-// bit: the per-primitive tests are treelet.py:_test_prims' in its order of
-// operations, and the library is built with -fmad=false.
+// and is not walked. Here the walk also takes the query's running hit
+// (t_in, id_in: the flat bank's, or the previous family's) and writes the
+// merged result: the family's hit where it is closer than the running one,
+// else the running one (on equal t the running hit stays; among the
+// family's own primitives the lowest global id wins). A dead lane, and with
+// any_hit a lane whose running hit is already finite, passes its running
+// hit through without a walk. Given the running hit's own buffers as its
+// output, it merges in place and writes only the lanes the family wins.
+// So the result does not depend on the walk's order and equals the plain
+// version (accel/treelet.py:trace_reference, a brute-force sweep merged
+// the same way) bit for bit: the per-primitive
+// tests are treelet.py:_test_prims' in its order of operations, and the
+// library is built with -fmad=false.
 //
-// What bounds it on the H100: neither bytes nor FLOPs. A ray reads 28
+// What bounds it on the H100: neither bytes nor FLOPs. A ray reads 36
 // bytes and writes 8, and does about ten node tests and a few primitive
 // tests whose addresses each depend on the step before, so the bound from
 // bytes or operations sits far below the time; the latency of those
-// dependent loads and the divergence of the walk's branches take it.
-// What the design does about it: the TPU mechanics (64-slot treelets,
-// quantised t_enter sort keys, bf16 3-split tables gathered by one-hot MXU
-// matmuls, chunk DMA) are gone; one thread walks the binary SAH BVH of
-// accel/bvh.py (leaves of at most 8 primitives) with a per-thread stack,
-// near child first, and skips a node whose t_enter is above its best hit.
-// Node boxes (32 bytes a node, two float4) and primitive fields (padded to
-// whole float4s) are read through the read-only cache; at 16384 triangles
-// the tables are under 1 MB and stay in the 50 MB L2. Node tests are
-// conservative (boxes padded on the host, slab interval widened by
-// SLAB_EPS), so rounding never culls a node that holds a hit.
+// dependent loads and idle SIMT lanes take it.
+// What the design does about it:
+// - Live rays in full warps (ray_queue.cuh): a warp takes 32 lanes for a
+//   closest hit (neighbouring rays, which walk alike) and 128 for an any
+//   hit (sparser), passes dead ones through, and its idle threads take the
+//   next live rays whenever REFILL of them are idle.
+// - Child-pair nodes: one 64-byte node holds both children's boxes and
+//   their references (a node index, or a leaf's first slot and count), so
+//   one contiguous fetch tests both children and a leaf needs no fetch of
+//   its own before its primitives.
+// - The traversal stack in shared memory, 8 bytes an entry and as many
+//   entries a thread as the family's tree is deep (from the host), so
+//   ptxas keeps no local-memory stack frame.
+// - The running hit seeds t_best, so every node beyond it is culled, and
+//   the merge with the flat bank's hit costs no launch of its own.
+// The walk is Aila and Laine's while-while: interior nodes until every
+// thread of the warp holds a leaf or is done, then one leaf each.
+// Node tests are conservative (boxes padded on the host, slab interval
+// widened by SLAB_EPS), so rounding never culls a node that holds a hit.
+#include "ray_queue.cuh"
 #include "trace_flat.cuh"
 
 namespace pbrs {
 
 constexpr int KIND_TRI = 0, KIND_QUAD = 1, KIND_SPHERE = 2, KIND_DISK = 3;
-// Per-thread stack entries: one per tree level at most, and the host
-// builder (accel/bvh.py) stops splitting below depth 61.
-constexpr int MAX_STACK = 64;
+constexpr int BVH_BLOCK = 128;
+// A warp takes new rays when this many of its threads are idle.
+constexpr int REFILL = 8;
 // accel/treelet.py SLAB_EPS, rounded from doubles as PyTorch rounds them.
 constexpr float SLAB_LO = (float)(1.0 - 1e-4);
 constexpr float SLAB_HI = (float)(1.0 + 1e-4);
+// Shared memory a block needs beside its stack: each warp's pending lanes.
+constexpr int BVH_QUEUE_BYTES =
+    (BVH_BLOCK / 32) * CLAIM_MAX * (int)sizeof(int);
+// A stack entry of one thread: a node reference and its t_enter, 8 bytes.
+// The reference is a pair index (>= 0) or a leaf, ~(first slot * 16 +
+// count): a leaf of the pair table holds at most LEAF_MAX primitives.
+constexpr int LEAF_MAX = 15;
+constexpr int STACK_ENTRY_BYTES = 8;
+constexpr int MAX_STACK_DEPTH =
+    (MAX_SMEM_BYTES - BVH_QUEUE_BYTES) / (STACK_ENTRY_BYTES * BVH_BLOCK);
 
 template <int KIND>
 struct Stride;
@@ -50,25 +77,26 @@ struct Inv {
   float x, y, z;
 };
 
-// The conservative slab test of one node (accel/treelet.py:_slab): passes
+// The conservative slab test of one box (accel/treelet.py:_slab): passes
 // when the widened interval is non-empty, ends at or after T_MIN, starts
-// before t_max and not after the best hit so far.
-static __device__ __forceinline__ bool node_hit(const float4* nodes, int i,
-                                                const Ray& r, const Inv& inv,
-                                                float t_max, float t_best,
-                                                float& te) {
-  const float4 a = __ldg(nodes + 2 * i);
-  const float4 b = __ldg(nodes + 2 * i + 1);
-  const float tx0 = (a.x - r.ox) * inv.x;
-  const float tx1 = (a.w - r.ox) * inv.x;
-  const float ty0 = (a.y - r.oy) * inv.y;
-  const float ty1 = (b.x - r.oy) * inv.y;
-  const float tz0 = (a.z - r.oz) * inv.z;
-  const float tz1 = (b.y - r.oz) * inv.z;
-  const float t_enter = maximum(maximum(minimum(tx0, tx1), minimum(ty0, ty1)),
-                                minimum(tz0, tz1));
-  const float t_exit = minimum(minimum(maximum(tx0, tx1), maximum(ty0, ty1)),
-                               maximum(tz0, tz1));
+// before t_max and not after the best hit so far. It culls and never
+// decides a hit's t, so plain fminf / fmaxf do (a NaN box, whose six slab
+// values are all NaN, still never passes).
+static __device__ __forceinline__ bool box_hit(float lx, float ly, float lz,
+                                               float hx, float hy, float hz,
+                                               const Ray& r, const Inv& inv,
+                                               float t_max, float t_best,
+                                               float& te) {
+  const float tx0 = (lx - r.ox) * inv.x;
+  const float tx1 = (hx - r.ox) * inv.x;
+  const float ty0 = (ly - r.oy) * inv.y;
+  const float ty1 = (hy - r.oy) * inv.y;
+  const float tz0 = (lz - r.oz) * inv.z;
+  const float tz1 = (hz - r.oz) * inv.z;
+  const float t_enter =
+      fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+  const float t_exit =
+      fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
   te = t_enter * (t_enter > 0.0f ? SLAB_LO : SLAB_HI);
   const float tx = t_exit * (t_exit > 0.0f ? SLAB_HI : SLAB_LO);
   return te <= tx && tx >= T_MIN && te < t_max && te <= t_best;
@@ -168,166 +196,232 @@ static __device__ __forceinline__ bool prim_hit(const float* fields, int slot,
   }
 }
 
-// The walk of one live ray: t_best = BIG and gid_best = -1 on a miss.
+// One thread's traversal state; its stack lives in shared memory, entry k
+// of thread tid at [k * BVH_BLOCK + tid].
+struct Walk {
+  Ray r;
+  Inv inv;
+  float t_max, t_best;
+  int g_best;    // the family's best global id, -1 while the running hit holds
+  int ref, cnt;  // the node in hand: a pair index (cnt 0) or a leaf
+  int sp;
+};
+
+static __device__ __forceinline__ void push(Walk& w, int2* stack, int ref,
+                                            int cnt, float t) {
+  stack[w.sp * BVH_BLOCK] =
+      make_int2(cnt ? ~(ref * 16 + cnt) : ref, __float_as_int(t));
+  ++w.sp;
+}
+
+// Pop the nearest pending node that can still beat the best hit; false
+// when none is left.
+static __device__ __forceinline__ bool pop(Walk& w, const int2* stack) {
+  while (w.sp > 0) {
+    --w.sp;
+    const int2 e = stack[w.sp * BVH_BLOCK];
+    if (__int_as_float(e.y) <= w.t_best) {
+      w.ref = e.x >= 0 ? e.x : (~e.x) >> 4;
+      w.cnt = e.x >= 0 ? 0 : (~e.x) & 15;
+      return true;
+    }
+  }
+  return false;
+}
+
 template <int KIND, bool ANY_HIT>
-static __device__ void walk(const float4* __restrict__ nodes,
-                            const float* __restrict__ fields,
-                            const int* __restrict__ slot_gid, const Ray& r,
-                            float t_max, float& t_best, int& gid_best) {
-  t_best = BIG;
-  gid_best = -1;
-  const Inv inv{1.0f / ((r.dx == 0.0f) ? (float)1e-30 : r.dx),
-                1.0f / ((r.dy == 0.0f) ? (float)1e-30 : r.dy),
-                1.0f / ((r.dz == 0.0f) ? (float)1e-30 : r.dz)};
-  int stack_node[MAX_STACK];
-  float stack_t[MAX_STACK];
-  int sp = 0;
-  float te;
-  if (!node_hit(nodes, 0, r, inv, t_max, t_best, te)) return;
-  int node = 0;
+__global__ void __launch_bounds__(BVH_BLOCK, 4)
+    trace_bvh_kernel(const float4* __restrict__ pairs,
+                     const float* __restrict__ fields,
+                     const int* __restrict__ slot_gid,
+                     const float* __restrict__ planes,
+                     const float* t_in, const int* id_in, int n, int claim,
+                     float* t_out, int* id_out) {
+  extern __shared__ int smem[];
+  const int warp = threadIdx.x >> 5;
+  WarpQueue q = warp_queue(smem + warp * CLAIM_MAX);
+  int2* stack = reinterpret_cast<int2*>(smem + (BVH_BLOCK / 32) * CLAIM_MAX) +
+                threadIdx.x;
+  const size_t stride = (size_t)n;
+  // The running hit of lane i, passed through unchanged (in place there is
+  // nothing to write; t_in and t_out may then alias, so neither is
+  // __restrict__: a lane is read before it is written, by one warp).
+  const bool in_place = t_out == t_in;
+  auto pass = [&](int i) {
+    if (in_place) return;
+    t_out[i] = t_in ? t_in[i] : inf_f();
+    id_out[i] = id_in ? id_in[i] : -1;
+  };
+  auto is_live = [&](int i) {
+    return planes[6 * stride + i] > 0.0f &&
+           !(ANY_HIT && t_in && t_in[i] < BIG);
+  };
+  int lane = -1;  // the ray lane this thread walks, -1 when idle
+  Walk w;
   while (true) {
-    const float4 b = __ldg(nodes + 2 * node + 1);
-    const int first = __float_as_int(b.z);
-    const int count = __float_as_int(b.w);
-    if (count > 0) {
-      for (int k = 0; k < count; ++k) {
-        const int slot = first + k;
-        float t;
-        if (prim_hit<KIND>(fields, slot, r, t_max, t) && t < BIG) {
-          const int g = __ldg(slot_gid + slot);
-          if (ANY_HIT) {
-            t_best = t;
-            gid_best = g;
-            return;
-          }
-          if (t < t_best || (t == t_best && g < gid_best)) {
-            t_best = t;
-            gid_best = g;
-          }
-        }
-      }
-    } else {
-      const int left = node + 1, right = first;
-      float tl, tr;
-      const bool hl = node_hit(nodes, left, r, inv, t_max, t_best, tl);
-      const bool hr = node_hit(nodes, right, r, inv, t_max, t_best, tr);
-      if (hl && hr) {
-        const bool near_l = tl <= tr;
-        stack_node[sp] = near_l ? right : left;
-        stack_t[sp] = near_l ? tr : tl;
-        ++sp;
-        node = near_l ? left : right;
-        continue;
-      }
-      if (hl || hr) {
-        node = hl ? left : right;
-        continue;
+    const unsigned idle = __ballot_sync(FULL_MASK, lane < 0);
+    if (__popc(idle) >= REFILL && (q.n_pending > 0 || !q.read)) {
+      const int got = take_rays(q, n, claim, lane >= 0, is_live, pass);
+      if (got >= 0) {
+        lane = got;
+        w.r = Ray{planes[lane], planes[stride + lane],
+                  planes[2 * stride + lane], planes[3 * stride + lane],
+                  planes[4 * stride + lane], planes[5 * stride + lane]};
+        w.inv = Inv{1.0f / ((w.r.dx == 0.0f) ? (float)1e-30 : w.r.dx),
+                    1.0f / ((w.r.dy == 0.0f) ? (float)1e-30 : w.r.dy),
+                    1.0f / ((w.r.dz == 0.0f) ? (float)1e-30 : w.r.dz)};
+        w.t_max = planes[6 * stride + lane];
+        const float seed = t_in ? t_in[lane] : inf_f();
+        w.t_best = seed < BIG ? seed : BIG;
+        w.g_best = -1;
+        w.ref = 0;  // pair 0: the root beside an empty (NaN) box
+        w.cnt = 0;
+        w.sp = 0;
       }
     }
-    // Pop the nearest pending node that can still beat the best hit.
-    bool found = false;
-    while (sp > 0) {
-      --sp;
-      if (stack_t[sp] <= t_best) {
-        node = stack_node[sp];
-        found = true;
+    if (__ballot_sync(FULL_MASK, lane >= 0) == 0) {
+      if (q.n_pending == 0 && q.read) break;
+      continue;
+    }
+    if (lane < 0) continue;
+    bool done = false;
+    // Interior nodes until this thread holds a leaf or is done.
+    while (w.cnt == 0) {
+      const float4* p = pairs + 4 * w.ref;
+      const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
+      const int4 d = __ldg(reinterpret_cast<const int4*>(p + 3));
+      float tl, tr;
+      const bool hl = box_hit(a.x, a.y, a.z, a.w, b.x, b.y, w.r, w.inv,
+                              w.t_max, w.t_best, tl);
+      const bool hr = box_hit(b.z, b.w, c.x, c.y, c.z, c.w, w.r, w.inv,
+                              w.t_max, w.t_best, tr);
+      if (hl && hr) {
+        const bool near_l = tl <= tr;
+        push(w, stack, near_l ? d.z : d.x, near_l ? d.w : d.y,
+             near_l ? tr : tl);
+        w.ref = near_l ? d.x : d.z;
+        w.cnt = near_l ? d.y : d.w;
+      } else if (hl || hr) {
+        w.ref = hl ? d.x : d.z;
+        w.cnt = hl ? d.y : d.w;
+      } else if (!pop(w, stack)) {
+        done = true;
         break;
       }
     }
-    if (!found) return;
-  }
-}
-
-template <int KIND, bool ANY_HIT>
-__global__ void trace_bvh_kernel(const float4* __restrict__ nodes,
-                                 const float* __restrict__ fields,
-                                 const int* __restrict__ slot_gid,
-                                 const float* __restrict__ planes, int n,
-                                 float* __restrict__ t_out,
-                                 int* __restrict__ id_out) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const size_t stride = (size_t)n;
-  const float t_max = planes[6 * stride + lane];
-  float t = inf_f();
-  int id = -1;
-  if (t_max > 0.0f) {
-    const Ray r{planes[lane], planes[stride + lane], planes[2 * stride + lane],
-                planes[3 * stride + lane], planes[4 * stride + lane],
-                planes[5 * stride + lane]};
-    float t_best;
-    int gid_best;
-    walk<KIND, ANY_HIT>(nodes, fields, slot_gid, r, t_max, t_best, gid_best);
-    if (gid_best >= 0) {
-      t = t_best;
-      id = gid_best;
+    if (!done) {
+      for (int k = 0; k < w.cnt; ++k) {
+        const int slot = w.ref + k;
+        float t;
+        if (prim_hit<KIND>(fields, slot, w.r, w.t_max, t) && t < BIG) {
+          const int g = __ldg(slot_gid + slot);
+          if (ANY_HIT) {
+            w.t_best = t;
+            w.g_best = g;
+            break;
+          }
+          if (t < w.t_best || (t == w.t_best && g < w.g_best)) {
+            w.t_best = t;
+            w.g_best = g;
+          }
+        }
+      }
+      done = (ANY_HIT && w.g_best >= 0) || !pop(w, stack);
+    }
+    if (done) {
+      if (w.g_best >= 0) {
+        t_out[lane] = w.t_best;
+        id_out[lane] = w.g_best;
+      } else {
+        pass(lane);
+      }
+      lane = -1;
     }
   }
-  t_out[lane] = t;
-  id_out[lane] = id;
 }
 
 template <int KIND, bool ANY_HIT>
-static void launch_bvh(const float* nodes, const float* fields,
-                       const int* slot_gid, const float* planes, int n,
-                       float* t_out, int* id_out, cudaStream_t stream) {
-  const int block = 256;
-  const int grid = (n + block - 1) / block;
-  trace_bvh_kernel<KIND, ANY_HIT><<<grid, block, 0, stream>>>(
-      reinterpret_cast<const float4*>(nodes), fields, slot_gid, planes, n,
-      t_out, id_out);
+static int launch_bvh(const float* pairs, const float* fields,
+                      const int* slot_gid, const float* planes,
+                      const float* t_in, const int* id_in, int n,
+                      int stack_depth, int claim, float* t_out, int* id_out,
+                      cudaStream_t stream) {
+  auto kernel = trace_bvh_kernel<KIND, ANY_HIT>;
+  const int smem =
+      BVH_QUEUE_BYTES + STACK_ENTRY_BYTES * stack_depth * BVH_BLOCK;
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+  kernel<<<lanes_grid(n, BVH_BLOCK, claim), BVH_BLOCK, smem, stream>>>(
+      reinterpret_cast<const float4*>(pairs), fields, slot_gid, planes, t_in,
+      id_in, n, claim, t_out, id_out);
+  return (int)cudaGetLastError();
 }
 
 template <int KIND>
-static void launch_kind(const float* nodes, const float* fields,
-                        const int* slot_gid, const float* planes, int n,
-                        float* t_out, int* id_out, int any_hit,
-                        cudaStream_t stream) {
-  if (any_hit)
-    launch_bvh<KIND, true>(nodes, fields, slot_gid, planes, n, t_out, id_out,
-                           stream);
-  else
-    launch_bvh<KIND, false>(nodes, fields, slot_gid, planes, n, t_out, id_out,
-                            stream);
+static int launch_kind(const float* pairs, const float* fields,
+                       const int* slot_gid, const float* planes,
+                       const float* t_in, const int* id_in, int n,
+                       int stack_depth, int claim, float* t_out, int* id_out,
+                       int any_hit, cudaStream_t stream) {
+  return any_hit ? launch_bvh<KIND, true>(pairs, fields, slot_gid, planes,
+                                          t_in, id_in, n, stack_depth, claim,
+                                          t_out, id_out, stream)
+                 : launch_bvh<KIND, false>(pairs, fields, slot_gid, planes,
+                                           t_in, id_in, n, stack_depth, claim,
+                                           t_out, id_out, stream);
 }
 
 }  // namespace pbrs
 
 extern "C" {
 
-// nodes: [n_nodes, 8] float32 (box, then first/right and count as int32
-// bits); fields: [P, stride] float32 in leaf order; slot_gid: [P] int32;
-// kind: 0 triangle, 1 quad, 2 sphere, 3 disk; planes: [7, n] float32
-// (ox, oy, oz, dx, dy, dz, t_max); t_out [n] float32; id_out [n] int32.
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// unknown kind, without a launch).
-int pbrs_trace_bvh(const float* nodes, const float* fields,
-                   const int* slot_gid, int kind, const float* planes, int n,
-                   float* t_out, int* id_out, int any_hit, void* stream) {
+// pairs: [n_pairs, 16] float32 child-pair nodes: the left child's box (lo
+// xyz, hi xyz), the right child's, then int32 bits (left ref, left count,
+// right ref, right count); a count of 0 marks an interior child whose ref
+// is its pair index, else ref is the leaf's first slot and the count is at
+// most LEAF_MAX. Pair 0 holds the root beside a NaN box. fields: [P,
+// stride] float32 in leaf order; slot_gid: [P] int32; kind: 0 triangle,
+// 1 quad, 2 sphere, 3 disk; planes: [7, n] float32 (ox, oy, oz, dx, dy,
+// dz, t_max); t_in [n] float32 and id_in [n] int32, the running hit (both
+// null: a miss on every lane); stack_depth: stack entries a thread, at
+// least the family's depth and at most pbrs_bvh_max_stack_depth(); claim:
+// lanes a warp (a multiple of 32 up to 128); t_out [n] float32 and id_out
+// [n] int32, either new buffers or t_in / id_in themselves (a merge in
+// place). Returns cudaGetLastError() after
+// the launch (cudaErrorInvalidValue for an unknown kind, stack depth or
+// claim, without a launch).
+int pbrs_trace_bvh(const float* pairs, const float* fields,
+                   const int* slot_gid, int kind, const float* planes,
+                   const float* t_in, const int* id_in, int n,
+                   int stack_depth, int claim, float* t_out, int* id_out,
+                   int any_hit, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (stack_depth < 1 || stack_depth > pbrs::MAX_STACK_DEPTH ||
+      claim < 32 || claim % 32 || claim > pbrs::CLAIM_MAX)
+    return (int)cudaErrorInvalidValue;
   switch (kind) {
     case pbrs::KIND_TRI:
-      pbrs::launch_kind<pbrs::KIND_TRI>(nodes, fields, slot_gid, planes, n,
-                                        t_out, id_out, any_hit, s);
-      break;
+      return pbrs::launch_kind<pbrs::KIND_TRI>(
+          pairs, fields, slot_gid, planes, t_in, id_in, n, stack_depth,
+          claim, t_out, id_out, any_hit, s);
     case pbrs::KIND_QUAD:
-      pbrs::launch_kind<pbrs::KIND_QUAD>(nodes, fields, slot_gid, planes, n,
-                                         t_out, id_out, any_hit, s);
-      break;
+      return pbrs::launch_kind<pbrs::KIND_QUAD>(
+          pairs, fields, slot_gid, planes, t_in, id_in, n, stack_depth,
+          claim, t_out, id_out, any_hit, s);
     case pbrs::KIND_SPHERE:
-      pbrs::launch_kind<pbrs::KIND_SPHERE>(nodes, fields, slot_gid, planes,
-                                           n, t_out, id_out, any_hit, s);
-      break;
+      return pbrs::launch_kind<pbrs::KIND_SPHERE>(
+          pairs, fields, slot_gid, planes, t_in, id_in, n, stack_depth,
+          claim, t_out, id_out, any_hit, s);
     case pbrs::KIND_DISK:
-      pbrs::launch_kind<pbrs::KIND_DISK>(nodes, fields, slot_gid, planes, n,
-                                         t_out, id_out, any_hit, s);
-      break;
+      return pbrs::launch_kind<pbrs::KIND_DISK>(
+          pairs, fields, slot_gid, planes, t_in, id_in, n, stack_depth,
+          claim, t_out, id_out, any_hit, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
-int pbrs_bvh_max_stack() { return pbrs::MAX_STACK; }
+int pbrs_bvh_max_stack_depth() { return pbrs::MAX_STACK_DEPTH; }
 
 }  // extern "C"

@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("trace_flat.cu", "fused_bounce.cu", "fused_single_lobe.cu",
            "trace_bvh.cu", "fused_wave.cu", "trace_prim_bvh.cu",
            "mm_probe.cu")
-HEADERS = ("trace_flat.cuh", "bounce_common.cuh", "shade_common.cuh")
+HEADERS = ("trace_flat.cuh", "ray_queue.cuh", "bounce_common.cuh",
+           "shade_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "pbrs_tpu_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -39,7 +40,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: (name, argtypes). A launcher returns cudaGetLastError().
 _SIGNATURES = {
-    "pbrs_trace_flat": [_VP, _I, _I, _I, _I, _VP, _I, _VP, _VP, _I, _VP],
+    "pbrs_trace_flat": [_VP, _VP, _VP, _I, _I, _VP, _VP, _I, _VP],
     "pbrs_fused_bounce": [_VP, _I, _I, _I, _I, _VP, _I, _VP, _I, _VP, _I,
                           _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP, _I, _VP,
                           _VP, _VP, _VP],
@@ -47,7 +48,8 @@ _SIGNATURES = {
                                _VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _I,
                                _I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP,
                                _VP, _VP],
-    "pbrs_trace_bvh": [_VP, _VP, _VP, _I, _VP, _I, _VP, _VP, _I, _VP],
+    "pbrs_trace_bvh": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _VP,
+                       _VP, _I, _VP],
     "pbrs_fused_wave": [_VP, _I, _I, _I, _VP, _I, _VP, _I, _VP, _I, _F, _I,
                         _I, _I, _I, _I, _I, _I, _I, _I, _VP, _I, _VP, _I,
                         _VP, _VP, _VP, _VP],
@@ -57,10 +59,16 @@ _SIGNATURES = {
     "pbrs_mm_probe": [_VP, _VP, _I, _I, _I, _VP, _VP],
     "pbrs_error_string": [_I],
     "pbrs_max_bank_rows": [],
-    "pbrs_bvh_max_stack": [],
+    "pbrs_flat_max_bytes": [],
+    "pbrs_bvh_max_stack_depth": [],
 }
 
 _lib = None
+# Lanes a warp of the trace kernels K1 and K5 takes (csrc/ray_queue.cuh),
+# for a closest-hit and an any-hit launch: a closest-hit warp keeps 32
+# neighbouring lanes, whose rays cull alike; an any-hit launch (twice the
+# lanes, sparsely live) packs the live rays of 128 into full warps.
+TRACE_CLAIM = (32, 128)
 
 
 def source_paths():

@@ -185,23 +185,45 @@ def test_walk_equals_sweep(case):
 
 
 def test_tables_hold_the_tree():
-    """Leaf slots cover every primitive once, interior nodes point to their
-    right child, and each slot's id maps back to its primitive."""
+    """The child-pair table holds the tree: leaf slots cover every
+    primitive once, every pair but the first is some pair's child and sits
+    after it, each child's box holds its primitives, no path down the
+    table is deeper than the walk's stack, and each slot's id maps back to
+    its primitive."""
     p = _mesh(3)
     fam = tl.tri_tracer(*p, 40)
-    meta = fam.nodes[:, 6:8].contiguous().view(torch.int32).numpy()
-    leaf = meta[:, 1] > 0
-    slots = np.concatenate([np.arange(f, f + c) for f, c in meta[leaf]])
+    nodes = fam.nodes.numpy()
+    kids = nodes[:, 12:16].copy().view(np.int32).reshape(-1, 2, 2)
+    boxes = nodes[:, :12].reshape(-1, 2, 6)
+    # Pair 0 holds the root beside a box no slab test passes.
+    assert np.isnan(boxes[0, 1]).all() and not np.isnan(boxes[1:]).any()
+    real = np.ones((fam.n_pairs, 2), bool)
+    real[0, 1] = False
+    leaf = real & (kids[..., 1] > 0)
+    inner = real & (kids[..., 1] == 0)
+    slots = np.concatenate([np.arange(f, f + c) for f, c in kids[leaf]])
     assert np.array_equal(np.sort(slots), np.arange(fam.n_prims))
-    assert (meta[~leaf, 0] > np.nonzero(~leaf)[0]).all()
-    assert fam.depth <= tl.MAX_STACK and fam.builder in ("native", "numpy")
+    parent = np.nonzero(inner)[0]
+    child = kids[inner][:, 0]
+    assert np.array_equal(np.sort(child), np.arange(1, fam.n_pairs))
+    assert (child > parent).all()
+    tri = np.stack(p, 1)  # [P, 3 corners, 3]
+    order = fam.slot_gid.numpy() - 40
+    for pair, side in zip(*np.nonzero(leaf)):
+        f, c = kids[pair, side]
+        pts = tri[order[f:f + c]].reshape(-1, 3)
+        assert (boxes[pair, side, :3] < pts.min(0)).all()
+        assert (boxes[pair, side, 3:] > pts.max(0)).all()
+    level = np.zeros(fam.n_pairs, np.int64)
+    level[child] = -1
+    for par, ch in sorted(zip(parent, child)):
+        level[ch] = level[par] + 1
+    assert level.max() <= fam.stack_depth == max(fam.depth, 1)
+    assert fam.builder in ("native", "numpy")
     gid = fam.slot_gid.numpy()
     fields = fam.fields.numpy()[:, :9]
     want = np.concatenate(p, 1)[gid - 40]
     np.testing.assert_array_equal(fields, want)
-    # Boxes are padded outward around their primitives.
-    assert (fam.nodes[0, 0:3].numpy() < np.min(np.stack(p), axis=(0, 1))).all()
-    assert (fam.nodes[0, 3:6].numpy() > np.max(np.stack(p), axis=(0, 1))).all()
 
 
 def test_id_map_gives_global_ids():
