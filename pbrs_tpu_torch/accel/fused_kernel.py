@@ -6,8 +6,9 @@ One launch runs a whole wavefront bounce: closest hit over the primitive
 bank, sphere/quad hit detail, shading frame, albedo/emission fetch, the
 environment, one-light quad NEE with MIS and both shadow sweeps, cosine
 BSDF sampling, Russian roulette and the next-ray spawn. The CUDA kernel
-(``csrc/fused_bounce.cu``) runs one thread per lane; ``bounce_reference``
-is the same bounce as a tensor program, op for op. ``bounce`` takes the
+(``csrc/fused_bounce.cu``) runs each window's live lanes packed into full
+warps; ``bounce_reference`` is the same bounce as a tensor program, op for
+op. ``bounce`` takes the
 kernel for CUDA tensors and the plain version for CPU tensors.
 
 The sampler stream is PCG or Owen-scrambled Sobol', drawn in-kernel
@@ -61,6 +62,9 @@ def scene_supports_fused(scene) -> bool:
     if scene.env.kind not in (lt.ENV_NONE, lt.ENV_CONST, lt.ENV_GRADIENT):
         return False
     if mt.kind.shape[0] > 64:
+        return False
+    # K2 stages the bank whole in shared memory.
+    if sum(scene.geom.counts) > tk.MAX_BANK_ROWS:
         return False
     # The detail pass covers spheres and quads only: a real (non-degenerate)
     # triangle or disk takes the general path.
@@ -176,7 +180,8 @@ def _occluded(tab, ox, oy, oz, dx, dy, dz, t_max):
 
 
 def bounce_reference(tab: FusedTables, fin, alive_in, pix, samp, *, seed,
-                     bounce, bounce_is_first, rr_active, rng="pcg"):
+                     bounce, bounce_is_first, rr_active, rng="pcg",
+                     shadow_log=None):
     """Plain version of K2: one bounce over N lanes.
 
     fin [9,N] float32: origin xyz, dir xyz, beta rgb; alive_in, pix, samp
@@ -184,7 +189,10 @@ def bounce_reference(tab: FusedTables, fin, alive_in, pix, samp, *, seed,
     next dir xyz, next beta rgb; alive_out [N] int32; traced-ray count, an
     int64 scalar: alive lanes, plus 2 x the lanes alive after the hit when
     the scene has lights). A dead lane passes its origin, dir and beta
-    through with zero radiance."""
+    through with zero radiance. A list given as shadow_log receives each
+    shadow sweep's rays, (ox, oy, oz, dx, dy, dz, t_max) planes, and the
+    mask of the lanes whose result depends on it (the lanes the kernel
+    sweeps)."""
     ox, oy, oz, dx, dy, dz, br, bg, bb = fin
     live = alive_in > 0
     rox, roy, roz, rdx, rdy, rdz = ox, oy, oz, dx, dy, dz
@@ -326,8 +334,9 @@ def bounce_reference(tab: FusedTables, fin, alive_in, pix, samp, *, seed,
         sox = px + side * nx * SPAWN_EPS
         soy = py + side * ny * SPAWN_EPS
         soz = pz + side * nz * SPAWN_EPS
-        occ1 = _occluded(tab, sox, soy, soz, ptx - sox, pty - soy, ptz - soz,
-                         torch.full_like(rox, 1.0 - 1e-3))
+        shadow1 = (sox, soy, soz, ptx - sox, pty - soy, ptz - soz,
+                   torch.full_like(rox, 1.0 - 1e-3))
+        occ1 = _occluded(tab, *shadow1)
         w_l = pdf_l * pdf_l / torch.clamp_min(
             pdf_l * pdf_l + pdf_scatter * pdf_scatter, 1e-30)
         valid_l = arm_area & facing & ~occ1 & (pdf_l > 0.0)
@@ -375,7 +384,15 @@ def bounce_reference(tab: FusedTables, fin, alive_in, pix, samp, *, seed,
                                         + lnz_u * w2z) * area, 1e-20)
         # Bounded to the light point on the area arm, unbounded for env.
         tmax2 = torch.where(arm_area & hit_l, t_hit * (1.0 - 1e-3), INF)
-        occ2 = _occluded(tab, s2ox, s2oy, s2oz, w2x, w2y, w2z, tmax2)
+        shadow2 = (s2ox, s2oy, s2oz, w2x, w2y, w2z, tmax2)
+        occ2 = _occluded(tab, *shadow2)
+        if shadow_log is not None:
+            env_on = tab.env_kind != lt.ENV_NONE
+            need2 = ((arm_area & hit_l & (pdf2 > 0.0) & (pdf_l2 > 0.0))
+                     | (arm_env & (pdf2 > 0.0) & env_on))
+            shadow_log.append(
+                (shadow1, alive & arm_area & facing & (pdf_l > 0.0)))
+            shadow_log.append((shadow2, alive & need2))
         w_b = pdf2 * pdf2 / torch.clamp_min(pdf2 * pdf2 + pdf_l2 * pdf_l2,
                                             1e-30)
         valid_b = arm_area & hit_l & ~occ2 & (pdf2 > 0.0) & (pdf_l2 > 0.0)
@@ -435,6 +452,39 @@ def bounce_reference(tab: FusedTables, fin, alive_in, pix, samp, *, seed,
 
 
 # ------------------------------ CUDA kernel -------------------------------
+
+
+def regroup_reference(alive, window):
+    """The order in which K2 and K3 run a launch's lanes
+    (csrc/bounce_common.cuh:live_lanes): each window of `window`
+    consecutive lanes takes its live lanes in lane order, then its dead
+    ones, which it passes through without shading, then the next window.
+    A stable permutation [N] int64 of the lanes; a lane's result does not
+    depend on where it runs."""
+    n = alive.shape[0]
+    lane = torch.arange(n, device=alive.device)
+    key = (lane // window) * 2 + (alive <= 0).to(torch.int64)
+    return torch.sort(key, stable=True).indices
+
+
+KERNEL_INFO = ("registers", "local_bytes", "warps_per_sm", "threads",
+               "window", "static_smem")
+
+
+def kernel_info(tab) -> dict:
+    """K2 (FusedTables) or K3 (SingleLobeTables) as built and as it fits an
+    SM of the current card with tab's bank: registers and local memory
+    (spill and stack) bytes a thread, resident warps an SM, threads a block,
+    lanes a block's window, static shared bytes a block (KERNEL_INFO).
+    CUDA only."""
+    import ctypes
+
+    info = (ctypes.c_int * len(KERNEL_INFO))()
+    fn = (kernels.lib().pbrs_fused_bounce_info if isinstance(tab, FusedTables)
+          else kernels.lib().pbrs_fused_single_lobe_info)
+    kernels.check(fn(tab.bank.shape[0], ctypes.cast(info, ctypes.c_void_p)),
+                  "fused bounce info")
+    return dict(zip(KERNEL_INFO, info))
 
 
 def _check_lanes(tab, fin, alive, pix, samp, count):

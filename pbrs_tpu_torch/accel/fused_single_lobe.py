@@ -9,8 +9,9 @@ nop/dielectric/conductor Fresnel, mirror, hybrid dielectric, transmit),
 two-lobe smooth mixtures (plastic, default uber), point/distant lights,
 quad/sphere-cone/disk/triangle area lights, flat triangles, disks, the
 none/const/gradient/dusk environments and solid/checker/Perlin textures.
-The CUDA kernel (``csrc/fused_single_lobe.cu``) runs one thread per lane;
-``bounce2_reference`` is the same bounce as a tensor program, op for op.
+The CUDA kernel (``csrc/fused_single_lobe.cu``) runs each window's live
+lanes packed into full warps, after the camera bounce in shading-class
+order; ``bounce2_reference`` is the same bounce as a tensor program, op for op.
 ``bounce2`` takes the kernel for CUDA tensors and the plain version for CPU
 tensors.
 
@@ -192,6 +193,10 @@ class SingleLobeTables:
     present_kinds: tuple
     light_shapes: tuple
     tex_kinds: tuple
+    # [M + 1] int32: each row's shading class, then a missed lane's
+    # (shading_class_table); the kernel shades a block's lanes by class.
+    mat_class: torch.Tensor = None
+    n_classes: int = 1
 
     @property
     def n_lights(self):
@@ -251,7 +256,7 @@ class SingleLobeTables:
         env_vec = np.concatenate([_np(env.color_a).reshape(3),
                                   _np(env.color_b).reshape(3),
                                   [float(_np(dl.world_radius))]])
-        return SingleLobeTables(
+        tab = SingleLobeTables(
             bank=bank.contiguous(), counts=counts, mats=f32(mats),
             texs=f32(texs), lights=f32(lights), delta=f32(delta),
             env=f32(env_vec), n_area=scene.area_lights.count,
@@ -260,6 +265,9 @@ class SingleLobeTables:
             env_kind=env.kind, two_slots=two_slots,
             present_kinds=tuple(sorted(set(used) - {lb.NONE})),
             light_shapes=light_shapes, tex_kinds=tuple(sorted(tex_used)))
+        table, tab.n_classes = shading_class_table(tab)
+        tab.mat_class = torch.as_tensor(table, device=dev)
+        return tab
 
 
 # ----------------------- plain version: BSDF pieces ------------------------
@@ -1017,7 +1025,7 @@ class _AreaLight:
 
 def bounce2_reference(tab: SingleLobeTables, fin, alive_in, spec_in, pix,
                       samp, *, seed, bounce, bounce_is_first, rr_active,
-                      rng="pcg"):
+                      rng="pcg", shadow_log=None):
     """Plain version of K3: one bounce over N lanes.
 
     fin [9,N] float32: origin xyz, dir xyz, beta rgb; alive_in, spec_in
@@ -1026,7 +1034,10 @@ def bounce2_reference(tab: SingleLobeTables, fin, alive_in, spec_in, pix,
     xyz, next beta rgb; alive_out [N] int32; spec_out [N] int32; traced-ray
     count, an int64 scalar: alive lanes, plus 2 x the lanes alive after the
     hit when the scene has lights). A dead lane passes its origin, dir and
-    beta through with zero radiance."""
+    beta through with zero radiance. A list given as shadow_log receives
+    each shadow sweep's rays, (ox, oy, oz, dx, dy, dz, t_max) planes, and
+    the mask of the lanes whose result depends on it (the lanes the kernel
+    sweeps)."""
     ox, oy, oz, dx, dy, dz, br, bg, bb = fin
     beta = (br, bg, bb)
     live = alive_in > 0
@@ -1178,13 +1189,16 @@ def bounce2_reference(tab: SingleLobeTables, fin, alive_in, spec_in, pix,
             cos_s = torch.abs(nx * wl[0] + ny * wl[1] + nz * wl[2])
             sdx, sdy, sdz = tgt[0] - px, tgt[1] - py, tgt[2] - pz
             side = torch.where(sdx * nx + sdy * ny + sdz * nz >= 0.0, 1.0, -1.0)
-            occ1 = _occluded(
-                tab, px + side * nx * SPAWN_EPS, py + side * ny * SPAWN_EPS,
-                pz + side * nz * SPAWN_EPS, sdx, sdy, sdz,
-                torch.full_like(ox, 1.0 - 1e-3))
+            shadow1 = (px + side * nx * SPAWN_EPS, py + side * ny * SPAWN_EPS,
+                       pz + side * nz * SPAWN_EPS, sdx, sdy, sdz,
+                       torch.full_like(ox, 1.0 - 1e-3))
+            occ1 = _occluded(tab, *shadow1)
             weight = torch.where(arm_delta, 1.0, pdf_l * pdf_l / torch.clamp_min(
                 pdf_l * pdf_l + pdf_sc * pdf_sc, 1e-30))
             li_any = (li[0] > 0.0) | (li[1] > 0.0) | (li[2] > 0.0)
+            if shadow_log is not None:
+                shadow_log.append((shadow1, alive & (arm_delta | arm_area)
+                                   & (pdf_l > 0.0) & li_any))
             valid = (arm_delta | arm_area) & ~occ1 & (pdf_l > 0.0) & li_any
             c = torch.where(valid, cos_s * weight * _weak_recip(pdf_l), 0.0)
             rad = [r + torch.where(alive, b * f * l * c * n_lights, 0.0)
@@ -1209,9 +1223,17 @@ def bounce2_reference(tab: SingleLobeTables, fin, alive_in, spec_in, pix,
             tmax2 = torch.where(arm_env, INF, torch.full_like(ox, 1.0 - 1e-3))
             side2 = torch.where(dir2[0] * nx + dir2[1] * ny + dir2[2] * nz >= 0.0,
                            1.0, -1.0)
-            occ2 = _occluded(
-                tab, px + side2 * nx * SPAWN_EPS, py + side2 * ny * SPAWN_EPS,
-                pz + side2 * nz * SPAWN_EPS, *dir2, tmax2)
+            shadow2 = (px + side2 * nx * SPAWN_EPS,
+                       py + side2 * ny * SPAWN_EPS,
+                       pz + side2 * nz * SPAWN_EPS, *dir2, tmax2)
+            occ2 = _occluded(tab, *shadow2)
+            if shadow_log is not None:
+                f_any2 = (f2[0] > 0.0) | (f2[1] > 0.0) | (f2[2] > 0.0)
+                need_b = (arm_area & hit_l & (pdf_l2 > 0.0) & f_any2
+                          if n_area > 0 else torch.zeros_like(live))
+                need_e = arm_env if has_env else torch.zeros_like(live)
+                shadow_log.append((shadow2, alive & ~s_delta & (s_pdf > 0.0)
+                                   & (need_b | need_e)))
             if n_area > 0:
                 w_b = s_pdf * s_pdf / torch.clamp_min(
                     s_pdf * s_pdf + pdf_l2 * pdf_l2, 1e-30)
@@ -1260,6 +1282,18 @@ def bounce2_reference(tab: SingleLobeTables, fin, alive_in, spec_in, pix,
 
 
 # ------------------------------ CUDA kernel -------------------------------
+
+
+def shading_class_table(tab: SingleLobeTables):
+    """(class [M + 1] int32, class count) of K3's material rows by their
+    lobe kinds, then of a missed lane: fused_wave.shading_classes, the key
+    K4 sorts its lanes by, on K3's table (kind in column 3 + 3 of each
+    16-column slot)."""
+    from .fused_wave import shading_classes
+
+    slots = 2 if tab.two_slots else 1
+    kinds = _np(tab.mats[:, [3 + SLOT_COLS * s + 3 for s in range(slots)]])
+    return shading_classes(kinds.astype(np.int64))
 
 
 def _check_lanes(tab, fin, ints, count):
@@ -1316,6 +1350,7 @@ def bounce2(tab: SingleLobeTables, fin, alive, spec, pix, samp, count, *,
     rc = kernels.lib().pbrs_fused_single_lobe(
         tab.bank.data_ptr(), *tab.counts,
         tab.mats.data_ptr(), tab.mats.shape[0], tab.mats.shape[1],
+        tab.mat_class.data_ptr(), tab.n_classes,
         tab.texs.data_ptr(), tab.n_texs, _mask(tab.tex_kinds),
         tab.lights.data_ptr(), tab.n_area, tab.delta.data_ptr(),
         tab.n_delta, tab.env.data_ptr(), tab.env_kind, int(tab.two_slots),

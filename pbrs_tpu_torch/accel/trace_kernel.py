@@ -44,6 +44,10 @@ BIG = 3.0e38
 INF = float("inf")
 INT_MAX = 2**31 - 1
 BANK_COLS = 16
+# Rows of the [P,16] bank that K2 and K3 stage whole in shared memory:
+# 227 KB less 32 KB kept for their static arrays (csrc/trace_flat.cuh
+# MAX_BANK_ROWS; chip_smoke.py phase 1 holds the two equal).
+MAX_BANK_ROWS = (232448 - 32768) // (BANK_COLS * 4)
 # The packed bank of K1 (csrc/trace_flat.cu): rows a chunk (of 4, 8, 16,
 # 32 and 64, 4 culled best on the main paths' banks of 272 and 1007 rows),
 # floats a row of each family (spheres, quads, triangles, disks), floats a

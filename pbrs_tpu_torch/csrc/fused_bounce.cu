@@ -12,17 +12,38 @@
 // here keeps its evaluation order, and the library is built with
 // -fmad=false and IEEE sqrt/div, so the two round alike.
 //
-// What bounds it on the H100: arithmetic and divergence. A lane runs three
-// bank sweeps (closest hit + two shadow rays, ~30 flops per primitive
-// each) plus ~300 flops of shading against 100 bytes of state in and out,
-// so memory traffic is small; lanes of one warp that die or take other
-// branches idle their slots.
-// What the design does about it: one thread per lane with the whole bounce
-// in registers (the TPU kept it in VMEM), SoA planes for coalesced loads,
-// the bank staged once per block in shared memory (broadcast reads), a dead
-// lane exiting early with its pass-through outputs, and an exact traced-ray
-// count: a warp-shuffle + shared-memory block reduction and one 64-bit
-// atomicAdd per block, in place of the TPU's per-lane-average encoding.
+// What bounds it on the H100: bytes at the main path's shape. One Cornell
+// 1024^2 depth-8 sample's eight launches must move 0.243 ms of bytes at
+// 3.35 TB/s (every lane's planes in and out; the camera bounce's
+// closest-hit and shadow sweeps are 0.035 ms of FP32 operations); they
+// take 1.345 ms (chip_smoke.py phase 3 and profiling.py on an NVIDIA H100
+// 80GB HBM3 at 700 W; the kernel before this design took 1.91-1.96 ms).
+// The time goes to latency in the dense bounces 0-4 (0.18-0.25 ms each,
+// 6-8x their bound): a lane's three sweeps of IEEE divisions and square
+// roots. The sparse bounces 5-7 (0.7-2.4% of lanes live) take
+// 0.074-0.083 ms, most of it the dead lanes' pass-through (0.029 ms of
+// bytes).
+// What the design does about it (each piece reverted alone in a copy of
+// the tree, one sample's launches timed by profiling.py, same card):
+// - Live lanes in full warps (bounce_common.cuh:live_lanes): a block of
+//   128 threads takes a window of 512 lanes, passes its dead lanes through
+//   as it reads them, and runs the live ones from a list in shared memory
+//   (at 1, 2 or 8 lanes a thread a sample takes 27%, 8% or 4% longer).
+// - The BSDF-sampled shadow ray, needed by 0.6% of the lanes, queued in
+//   shared memory and swept by the block, one ray a thread, once its
+//   lanes are shaded (without the queue: +7%).
+// - A quad's 1 / |n|^2 staged once a block in the shared bank and a
+//   sphere test's 1 / |d|^2 once a ray (trace_flat.cuh): about half the
+//   IEEE divisions of a sweep, the same bits (unstaged: +6%); Sobol'
+//   dimension 1 by a bit transform (bounce_common.cuh; the 32-step sum:
+//   +5% on the Sobol' path).
+// - 96 registers a thread, 20 warps an SM, no spill (built for 16 warps:
+//   +4%; for 24: +6%).
+// - The bank staged once a block in shared memory (broadcast reads; up to
+//   MAX_BANK_ROWS rows, opted in past 48 KB), the scene's switches as
+//   launch arguments, and an exact traced-ray count: a warp-shuffle and
+//   shared-memory block reduction and one 64-bit atomicAdd a block, in
+//   place of the TPU's per-lane-average encoding.
 #include "bounce_common.cuh"
 
 namespace pbrs {
@@ -60,9 +81,13 @@ static __device__ __forceinline__ void env_along(const Tables& tb, float x,
 
 // The bounce of one live lane. in[9]: origin, dir, beta; out[12]: radiance,
 // next origin, next dir, next beta. Returns the lane's traced-ray count.
+// The BSDF-sampled shadow ray goes to the block's queue (out's radiance is
+// then the occluded one until the block sweeps it), or, the queue full, is
+// swept here.
 static __device__ unsigned bounce_lane(const Tables& tb, const float* in,
                                        const Draw& u1, bool first,
-                                       bool rr_active, float* out,
+                                       bool rr_active, int lane,
+                                       const ShadowQueue& queue, float* out,
                                        int& alive_out) {
   const float rox = in[0], roy = in[1], roz = in[2];
   const float rdx = in[3], rdy = in[4], rdz = in[5];
@@ -266,30 +291,40 @@ static __device__ unsigned bounce_lane(const Tables& tb, const float* in,
     const bool env_on = tb.env_kind != ENV_NONE;
     bool valid_b = arm_area && hit_l && (pdf2 > 0.0f) && (pdf_l2 > 0.0f);
     bool valid_e = env_on && arm_env && (pdf2 > 0.0f);
-    if (alive && (valid_b || valid_e)) {
-      const bool occ2 =
-          occluded(tb.prims(), Ray{s2ox, s2oy, s2oz, w2x, w2y, w2z}, tmax2);
-      valid_b = valid_b && !occ2;
-      valid_e = valid_e && !occ2;
-    }
-    const float w_b =
-        pdf2 * pdf2 / max0(pdf2 * pdf2 + pdf_l2 * pdf_l2, (float)1e-30);
-    const float contrib_b = valid_b ? f2 * w_b / max0(pdf2, (float)1e-20) : 0.0f;
-    if (alive) {
-      rad_r = rad_r + br * alb_r * contrib_b * ler * fn;
-      rad_g = rad_g + bg * alb_g * contrib_b * leg * fn;
-      rad_b = rad_b + bb * alb_b * contrib_b * leb * fn;
-    }
-    if (env_on) {
-      float er2, eg2, eb2;
-      env_along(tb, w2x, w2y, w2z, er2, eg2, eb2);
-      const float contrib_e = valid_e ? f2 / max0(pdf2, (float)1e-20) : 0.0f;
+    // The arm's radiance onto (r, g, b), the shadow ray decided.
+    auto arm = [&](bool vb, bool ve, float& r, float& g, float& b) {
+      const float w_b =
+          pdf2 * pdf2 / max0(pdf2 * pdf2 + pdf_l2 * pdf_l2, (float)1e-30);
+      const float contrib_b = vb ? f2 * w_b / max0(pdf2, (float)1e-20) : 0.0f;
       if (alive) {
-        rad_r = rad_r + br * alb_r * contrib_e * er2 * fn;
-        rad_g = rad_g + bg * alb_g * contrib_e * eg2 * fn;
-        rad_b = rad_b + bb * alb_b * contrib_e * eb2 * fn;
+        r = r + br * alb_r * contrib_b * ler * fn;
+        g = g + bg * alb_g * contrib_b * leg * fn;
+        b = b + bb * alb_b * contrib_b * leb * fn;
+      }
+      if (env_on) {
+        float er2, eg2, eb2;
+        env_along(tb, w2x, w2y, w2z, er2, eg2, eb2);
+        const float contrib_e = ve ? f2 / max0(pdf2, (float)1e-20) : 0.0f;
+        if (alive) {
+          r = r + br * alb_r * contrib_e * er2 * fn;
+          g = g + bg * alb_g * contrib_e * eg2 * fn;
+          b = b + bb * alb_b * contrib_e * eb2 * fn;
+        }
+      }
+    };
+    if (alive && (valid_b || valid_e)) {
+      const Ray r2{s2ox, s2oy, s2oz, w2x, w2y, w2z};
+      float vr = rad_r, vg = rad_g, vb = rad_b;
+      arm(valid_b, valid_e, vr, vg, vb);
+      if (queue.push(lane, r2, tmax2, vr, vg, vb)) {
+        valid_b = valid_e = false;  // written as occluded until swept
+      } else {
+        const bool occ2 = occluded(tb.prims(), r2, tmax2);
+        valid_b = valid_b && !occ2;
+        valid_e = valid_e && !occ2;
       }
     }
+    arm(valid_b, valid_e, rad_r, rad_g, rad_b);
     if (alive) n_rays += 2;
   }
 
@@ -336,38 +371,58 @@ static __device__ unsigned bounce_lane(const Tables& tb, const float* in,
   return n_rays;
 }
 
-__global__ void fused_bounce_kernel(
-    const float* __restrict__ bank, int n_sph, int n_quad, int n_tri,
-    int n_disk, const float* __restrict__ mats, int n_mats,
-    const float* __restrict__ lights, int n_area,
-    const float* __restrict__ env, int env_kind, int rng, uint32_t seed,
-    uint32_t bounce, int first, int rr_active, const float* __restrict__ fin,
-    const int* __restrict__ alive_in, const int* __restrict__ pix,
-    const int* __restrict__ samp, int n, float* __restrict__ fout,
-    int* __restrict__ alive_out, unsigned long long* __restrict__ count) {
+// Threads a block and the blocks an SM must hold (so registers a thread:
+// 96, 20 warps an SM, no spill), and the lanes a thread reads: a block's
+// window is BOUNCE_PER x BOUNCE_BLOCK = 512 lanes.
+constexpr int BOUNCE_BLOCK = 128, BOUNCE_MIN_BLOCKS = 5, BOUNCE_PER = 4;
+constexpr int BOUNCE_WINDOW = BOUNCE_PER * BOUNCE_BLOCK;
+
+__global__ void __launch_bounds__(BOUNCE_BLOCK, BOUNCE_MIN_BLOCKS)
+    fused_bounce_kernel(
+        const float* __restrict__ bank, int n_sph, int n_quad, int n_tri,
+        int n_disk, const float* __restrict__ mats, int n_mats,
+        const float* __restrict__ lights, int n_area,
+        const float* __restrict__ env, int env_kind, int rng, uint32_t seed,
+        uint32_t bounce, int first, int rr_active,
+        const float* __restrict__ fin, const int* __restrict__ alive_in,
+        const int* __restrict__ pix, const int* __restrict__ samp, int n,
+        float* __restrict__ fout,
+        int* __restrict__ alive_out, unsigned long long* __restrict__ count) {
   extern __shared__ float s_bank[];
-  stage_bank(s_bank, bank, n_sph + n_quad + n_tri + n_disk);
+  __shared__ int s_lane[BOUNCE_WINDOW];
+  __shared__ int s_cnt[32];
+  __shared__ int s_qn, s_qlane[QUEUE_MAX];
+  __shared__ float s_qray[QUEUE_MAX * 7], s_qrad[QUEUE_MAX * 3];
+  if (threadIdx.x == 0) s_qn = 0;
+  const ShadowQueue sq{&s_qn, s_qlane, s_qray, s_qrad};
+  stage_bank(s_bank, bank, n_sph + n_quad + n_tri + n_disk, n_sph,
+             n_sph + n_quad);
   const Tables tb{s_bank, n_sph, n_quad, n_tri,  n_disk,
                   mats,   n_mats, lights, n_area, env, env_kind};
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const size_t stride = (size_t)n;
+  // Dead lane: zero radiance, origin/dir/beta passed through.
+  const LiveList live = live_lanes<BOUNCE_PER>(
+      alive_in, n, s_lane, s_cnt, [&](int i) {
+        for (int j = 0; j < 3; ++j) fout[j * stride + i] = 0.0f;
+        for (int j = 0; j < 9; ++j) fout[(3 + j) * stride + i] = fin[j * stride + i];
+        alive_out[i] = 0;
+      });
   unsigned rays = 0;
-  if (lane < n) {
+#pragma unroll 1
+  for (int pos = live.first; pos < live.count; pos += live.step) {
+    const int lane = live.lanes[pos];
     float in[9], out[12];
     for (int j = 0; j < 9; ++j) in[j] = fin[j * stride + lane];
     int alive = 0;
-    if (alive_in[lane] > 0) {
-      const Draw u1{rng, seed, (uint32_t)pix[lane], (uint32_t)samp[lane],
-                    bounce};
-      rays = bounce_lane(tb, in, u1, first != 0, rr_active != 0, out, alive);
-    } else {
-      // Dead lane: zero radiance, origin/dir/beta passed through.
-      out[0] = out[1] = out[2] = 0.0f;
-      for (int j = 0; j < 9; ++j) out[3 + j] = in[j];
-    }
+    const Draw u1{rng, seed, (uint32_t)pix[lane], (uint32_t)samp[lane],
+                  bounce};
+    rays += bounce_lane(tb, in, u1, first != 0, rr_active != 0, lane,
+                        sq, out, alive);
     for (int j = 0; j < 12; ++j) fout[j * stride + lane] = out[j];
     alive_out[lane] = alive;
   }
+  __syncthreads();
+  sweep_queue(sq, tb.prims(), fout, stride);
   count_rays(rays, count);
 }
 
@@ -379,7 +434,8 @@ extern "C" {
 // fout [12, n] float32 (radiance, next origin, next dir, next beta);
 // alive_out [n] int32; count: one uint64 the bounce's traced rays are added
 // to; rng 0 draws PCG, 1 Sobol'. Returns cudaGetLastError() after the
-// launch.
+// launch (cudaErrorInvalidValue without one for a bank that does not fit
+// shared memory beside the kernel's static arrays).
 int pbrs_fused_bounce(const float* bank, int n_sph, int n_quad, int n_tri,
                       int n_disk, const float* mats, int n_mats,
                       const float* lights, int n_area, const float* env,
@@ -389,17 +445,41 @@ int pbrs_fused_bounce(const float* bank, int n_sph, int n_quad, int n_tri,
                       int* alive_out, void* count, void* stream) {
   const int n_rows = n_sph + n_quad + n_tri + n_disk;
   const int smem = n_rows * pbrs::BANK_COLS * (int)sizeof(float);
-  if (smem > 48 * 1024 - 128)
-    cudaFuncSetAttribute(pbrs::fused_bounce_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int block = 256;
-  const int grid = (n + block - 1) / block;
-  pbrs::fused_bounce_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+  const cudaError_t e = pbrs::fit_smem(pbrs::fused_bounce_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (n + pbrs::BOUNCE_WINDOW - 1) / pbrs::BOUNCE_WINDOW;
+  pbrs::fused_bounce_kernel<<<grid, pbrs::BOUNCE_BLOCK, smem,
+                              (cudaStream_t)stream>>>(
       bank, n_sph, n_quad, n_tri, n_disk, mats, n_mats, lights, n_area, env,
       env_kind, rng, (uint32_t)seed, (uint32_t)bounce, first, rr_active, fin,
       alive_in, pix, samp, n, fout, alive_out,
       (unsigned long long*)count);
   return (int)cudaGetLastError();
+}
+
+// K2 as ptxas built it and as it launches on one SM with an n_rows bank:
+// info[0] registers a thread, info[1] local memory bytes a thread (spills
+// and stack), info[2] resident warps an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), info[3] threads a block,
+// info[4] lanes a block's window, info[5] static shared bytes a block.
+int pbrs_fused_bounce_info(int n_rows, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, pbrs::fused_bounce_kernel);
+  if (e != cudaSuccess) return (int)e;
+  const int smem = n_rows * pbrs::BANK_COLS * (int)sizeof(float);
+  e = pbrs::fit_smem(pbrs::fused_bounce_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, pbrs::fused_bounce_kernel, pbrs::BOUNCE_BLOCK, smem);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = blocks * pbrs::BOUNCE_BLOCK / 32;
+  info[3] = pbrs::BOUNCE_BLOCK;
+  info[4] = pbrs::BOUNCE_WINDOW;
+  info[5] = (int)attr.sharedSizeBytes;
+  return 0;
 }
 
 }  // extern "C"

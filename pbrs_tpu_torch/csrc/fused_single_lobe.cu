@@ -15,26 +15,44 @@
 // is pbrs_tpu_torch/accel/fused_single_lobe.py:bounce2_reference; every
 // expression here keeps its evaluation order (see bounce_common.cuh).
 //
-// What bounds it on the H100: arithmetic and divergence. A lane runs three
-// bank sweeps (~30 flops per primitive each) and ~1-3k flops of shading
-// (the Perlin marble alone is 7 octaves x 8 lattice hashes) against ~100
-// bytes of lane state in and out, far above the card's bytes-per-flop
-// line; lanes of one warp that take other materials, lights or die idle
-// their slots.
-// What the design does about it: one thread per lane with the bounce in
-// registers; SoA planes for coalesced loads; the primitive bank staged once
-// per block in shared memory (a broadcast read per primitive); the material
-// (up to 512 x 35 floats), texture, light and delta rows read through the
-// read-only cache with __ldg -- one indexed load per lane in place of the
-// TPU's one-hot MXU gather, leaving shared memory to the bank so that
-// occupancy stays that of K2; a lane branching on its own lobe kind and
-// light shape, so it computes one material model and one shape where the
-// TPU kernel masked every model the scene holds; the scene's static
-// switches (two slots, texture kinds, env kind, first bounce, roulette) as
-// warp-uniform launch arguments, not template parameters, so one build
-// serves every scene; a dead lane exiting early with its pass-through
-// outputs; and an exact traced-ray count (block reduction, one 64-bit
-// atomicAdd per block) in place of the TPU's per-lane average.
+// What bounds it on the H100: bytes at the main path's shape. One plates
+// 1024^2 depth-5 sample's five launches must move 0.158 ms of bytes at
+// 3.35 TB/s (every lane's planes in and out; the closest-hit and shadow
+// sweeps are fewer FP32 operations than that in every launch); they take
+// 1.09 ms (chip_smoke.py phase 7 and profiling.py on an NVIDIA H100 80GB
+// HBM3 at 700 W; the kernel before this design took 1.27 ms). The time
+// goes to the dense bounces 0-1 (0.29-0.30 ms each, 9x their bound):
+// divergence over the lobe kinds and light shapes a warp holds, and
+// latency. Bounces 2-4 (7-14% of lanes live) take 0.15-0.17 ms.
+// What the design does about it (each piece reverted alone in a copy of
+// the tree, one sample's launches timed by profiling.py, same card):
+// - Live lanes in full warps (bounce_common.cuh:live_lanes): a block of
+//   256 threads takes a window of 1024 lanes, passes its dead lanes
+//   through as it reads them and keeps the live ones in a list in shared
+//   memory (at 1 or 2 lanes a thread a sample takes 26% or 9% longer).
+// - Lanes regrouped by shading class: the block traces every live lane's
+//   closest hit first, keeps (t, row) in shared memory, sorts the list by
+//   the hit row's class (fused_wave.shading_classes on K3's table; a
+//   stable counting sort, warp match and block scan) and shades in class
+//   order, so a warp runs one lobe kind's branches (without: +10% a
+//   sample; on the camera bounce too, where 6% of the warps hold more
+//   than one class, skipping it costs 10%).
+// - The BSDF-sampled shadow ray queued in shared memory and swept by the
+//   block, one ray a thread, once its lanes are shaded (without: +13%).
+// - A quad's 1 / |n|^2 staged once a block and a sphere test's 1 / |d|^2
+//   once a ray (trace_flat.cuh), the same bits (unstaged: +2%); Sobol'
+//   dimension 1 by a bit transform (the 32-step sum: +6% on the Sobol'
+//   path).
+// - 128 registers a thread, 16 warps an SM, no spill (built for 8 warps:
+//   +36%; for 20: +12%).
+// - The material, texture, light and delta rows read through the
+//   read-only cache with __ldg, one indexed load per lane in place of the
+//   TPU's one-hot MXU gather; a lane branching on its own lobe kind and
+//   light shape where the TPU kernel masked every model the scene holds;
+//   the scene's switches (two slots, texture kinds, env kind, first
+//   bounce, roulette) as launch arguments, so one build serves every
+//   scene; an exact traced-ray count (block reduction, one 64-bit
+//   atomicAdd per block) in place of the TPU's per-lane average.
 #include "shade_common.cuh"
 
 namespace pbrs {
@@ -249,16 +267,27 @@ static __device__ void overlay_texture(const Params& P, Lobe& l, float px,
     for (int i = 0; i < 3; ++i) l.alb[i] = c[i];
 }
 
-// Closest hit and hit detail (sphere/quad/triangle/disk) -> position p,
-// normal n (facing the ray), tangent t; returns the material id (-1 on a
-// miss).
-static __device__ int hit_detail(const Bank& bk, const float* o,
-                                 const float* d, bool& hit, float* p,
-                                 float* n, float* t) {
-  float tb;
-  int pid;
+// The closest hit (tb, bank row pid) of a ray.
+static __device__ __forceinline__ void closest_hit(const Bank& bk,
+                                                   const float* o,
+                                                   const float* d, float& tb,
+                                                   int& pid) {
   sweep<false>(bk.rows, bk.n_sph, bk.n_quad, bk.n_tri, bk.n_disk,
                Ray{o[0], o[1], o[2], d[0], d[1], d[2]}, inf_f(), tb, pid);
+}
+
+// The material row a closest hit (tb, pid) shades with, -1 on a miss.
+static __device__ __forceinline__ int hit_material(const Bank& bk, float tb,
+                                                   int pid) {
+  return tb < BIG ? (int)bk.rows[pid * BANK_COLS + 13] : -1;
+}
+
+// Hit detail (sphere/quad/triangle/disk) of the closest hit (tb, pid) ->
+// position p, normal n (facing the ray), tangent t; returns the material
+// id (-1 on a miss).
+static __device__ int hit_detail(const Bank& bk, const float* o,
+                                 const float* d, float tb, int pid,
+                                 bool& hit, float* p, float* n, float* t) {
   hit = tb < BIG;
   const float t_safe = hit ? tb : 1.0f;
   for (int i = 0; i < 3; ++i) {
@@ -371,8 +400,9 @@ static __device__ int hit_detail(const Bank& bk, const float* o,
 // radiance, next origin, next dir, next beta. Returns the lane's traced-ray
 // count.
 static __device__ unsigned bounce_lane(const Params& P, const float* in,
-                                       bool prev_spec, uint32_t pixu,
-                                       uint32_t smpu, float* out,
+                                       float tb, int pid, bool prev_spec,
+                                       uint32_t pixu, uint32_t smpu, int lane,
+                                       const ShadowQueue& queue, float* out,
                                        int& alive_out, int& spec_out) {
   const float* o = in;
   const float* d = in + 3;
@@ -382,7 +412,7 @@ static __device__ unsigned bounce_lane(const Params& P, const float* in,
 
   bool hit;
   float p[3], n[3], tg[3];
-  const int mat_id = hit_detail(P.bank, o, d, hit, p, n, tg);
+  const int mat_id = hit_detail(P.bank, o, d, tb, pid, hit, p, n, tg);
   const float nx = n[0], ny = n[1], nz = n[2];
 
   // ---- shading frame: vecmath.orthonormal_frame(normal, dpdu) ----
@@ -519,6 +549,23 @@ static __device__ unsigned bounce_lane(const Params& P, const float* in,
       bool valid_b = arm_area && hit_l && !s.delta && (s.pdf > 0.0f) &&
                      (pdf_l2 > 0.0f) && f_any;
       bool valid_e = has_env && arm_env && !s.delta && (s.pdf > 0.0f);
+      // The arm's radiance onto r, the shadow ray decided.
+      auto arm = [&](bool vb, bool ve, float* r) {
+        if (vb) {
+          const float w_b = s.pdf * s.pdf /
+                            max0(s.pdf * s.pdf + pdf_l2 * pdf_l2, (float)1e-30);
+          const float cb_ = w_b * weak_recip(s.pdf);
+          for (int i = 0; i < 3; ++i)
+            r[i] = r[i] + beta[i] * f2[i] * L.le[i] * cb_ * fn;
+        }
+        if (ve) {
+          float er2[3];
+          env_eval(P, w2[0], w2[1], w2[2], er2);
+          const float ce_ = weak_recip(s.pdf);
+          for (int i = 0; i < 3; ++i)
+            r[i] = r[i] + beta[i] * f2[i] * er2[i] * ce_ * fn;
+        }
+      };
       if (valid_b || valid_e) {
         // Shared shadow ray: to the light point on the area arm (t_max
         // 1 - 1e-3), unbounded along wi on the env arm.
@@ -528,28 +575,20 @@ static __device__ unsigned bounce_lane(const Params& P, const float* in,
         const float side2 =
             (dir2[0] * nx + dir2[1] * ny + dir2[2] * nz >= 0.0f) ? 1.0f
                                                                  : -1.0f;
-        const bool occ2 = occluded(
-            P.bank,
-            Ray{p[0] + side2 * nx * SPAWN_EPS, p[1] + side2 * ny * SPAWN_EPS,
-                p[2] + side2 * nz * SPAWN_EPS, dir2[0], dir2[1], dir2[2]},
-            tmax2);
-        valid_b = valid_b && !occ2;
-        valid_e = valid_e && !occ2;
+        const Ray r2{p[0] + side2 * nx * SPAWN_EPS,
+                     p[1] + side2 * ny * SPAWN_EPS,
+                     p[2] + side2 * nz * SPAWN_EPS, dir2[0], dir2[1], dir2[2]};
+        float vis[3] = {rad[0], rad[1], rad[2]};
+        arm(valid_b, valid_e, vis);
+        if (queue.push(lane, r2, tmax2, vis[0], vis[1], vis[2])) {
+          valid_b = valid_e = false;  // written as occluded until swept
+        } else {
+          const bool occ2 = occluded(P.bank, r2, tmax2);
+          valid_b = valid_b && !occ2;
+          valid_e = valid_e && !occ2;
+        }
       }
-      if (valid_b) {
-        const float w_b =
-            s.pdf * s.pdf / max0(s.pdf * s.pdf + pdf_l2 * pdf_l2, (float)1e-30);
-        const float cb_ = w_b * weak_recip(s.pdf);
-        for (int i = 0; i < 3; ++i)
-          rad[i] = rad[i] + beta[i] * f2[i] * L.le[i] * cb_ * fn;
-      }
-      if (valid_e) {
-        float er2[3];
-        env_eval(P, w2[0], w2[1], w2[2], er2);
-        const float ce_ = weak_recip(s.pdf);
-        for (int i = 0; i < 3; ++i)
-          rad[i] = rad[i] + beta[i] * f2[i] * er2[i] * ce_ * fn;
-      }
+      arm(valid_b, valid_e, rad);
     }
     n_rays += 2;
   }
@@ -588,35 +627,121 @@ static __device__ unsigned bounce_lane(const Params& P, const float* in,
   return n_rays;
 }
 
-__global__ void fused_single_lobe_kernel(
-    Params P, const float* __restrict__ fin, const int* __restrict__ alive_in,
-    const int* __restrict__ spec_in, const int* __restrict__ pix,
-    const int* __restrict__ samp, int n, float* __restrict__ fout,
-    int* __restrict__ alive_out, int* __restrict__ spec_out,
-    unsigned long long* __restrict__ count) {
+// Threads a block and the blocks an SM must hold (so registers a thread:
+// 128, 16 warps an SM, no spill), and the lanes a thread reads: a block's
+// window is LOBE_PER x LOBE_BLOCK = 1024 lanes.
+constexpr int LOBE_BLOCK = 256, LOBE_MIN_BLOCKS = 2, LOBE_PER = 4;
+constexpr int LOBE_WINDOW = LOBE_PER * LOBE_BLOCK;
+constexpr int MAX_KEYS = 33;  // shading classes (fused_wave MAX_CLASSES) + 1
+constexpr int WINDOW_CHUNKS = LOBE_WINDOW / 32;  // 32-entry chunks of a list
+constexpr int CHUNKS_PER_WARP = WINDOW_CHUNKS / (LOBE_BLOCK / 32);
+
+__global__ void __launch_bounds__(LOBE_BLOCK, LOBE_MIN_BLOCKS)
+    fused_single_lobe_kernel(Params P, const int* __restrict__ mat_class,
+                             int n_classes,
+                             const float* __restrict__ fin,
+                             const int* __restrict__ alive_in,
+                             const int* __restrict__ spec_in,
+                             const int* __restrict__ pix,
+                             const int* __restrict__ samp, int n,
+                             float* __restrict__ fout,
+                             int* __restrict__ alive_out,
+                             int* __restrict__ spec_out,
+                             unsigned long long* __restrict__ count) {
   extern __shared__ float s_bank[];
+  __shared__ int s_qn, s_qlane[QUEUE_MAX];
+  __shared__ float s_qray[QUEUE_MAX * 7], s_qrad[QUEUE_MAX * 3];
+  if (threadIdx.x == 0) s_qn = 0;
+  const ShadowQueue sq{&s_qn, s_qlane, s_qray, s_qrad};
+  __shared__ int s_lane[LOBE_WINDOW];
+  __shared__ float s_t[LOBE_WINDOW];
+  __shared__ int s_pid[LOBE_WINDOW];
+  __shared__ unsigned char s_key[LOBE_WINDOW];
+  __shared__ unsigned short s_order[LOBE_WINDOW];
+  __shared__ int s_cnt[MAX_KEYS * WINDOW_CHUNKS];
+  __shared__ int s_tot[32];
   stage_bank(s_bank, P.bank_g,
-             P.bank.n_sph + P.bank.n_quad + P.bank.n_tri + P.bank.n_disk);
+             P.bank.n_sph + P.bank.n_quad + P.bank.n_tri + P.bank.n_disk,
+             P.bank.n_sph, P.bank.n_sph + P.bank.n_quad);
   P.bank.rows = s_bank;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   const size_t stride = (size_t)n;
+  // Dead lane: zero radiance, origin/dir/beta passed through.
+  const LiveList live = live_lanes<LOBE_PER>(
+      alive_in, n, s_lane, s_cnt, [&](int i) {
+        for (int j = 0; j < 3; ++j) fout[j * stride + i] = 0.0f;
+        for (int j = 0; j < 9; ++j) fout[(3 + j) * stride + i] = fin[j * stride + i];
+        alive_out[i] = 0;
+        spec_out[i] = 0;
+      });
+  // The closest hit of every live lane first, and its shading class ...
+  const int n_keys = n_classes + 1;  // the classes, then no lane
+#pragma unroll 1
+  for (int pos = live.first; pos < live.count; pos += live.step) {
+    const int lane = live.lanes[pos];
+    float o[3], d[3];
+    for (int j = 0; j < 3; ++j) {
+      o[j] = fin[j * stride + lane];
+      d[j] = fin[(3 + j) * stride + lane];
+    }
+    float tb;
+    int pid;
+    closest_hit(P.bank, o, d, tb, pid);
+    s_t[pos] = tb;
+    s_pid[pos] = pid;
+    const int mat = hit_material(P.bank, tb, pid);
+    s_key[pos] = (unsigned char)__ldg(
+        mat_class + (mat >= 0 && mat < P.n_mats ? mat : P.n_mats));
+  }
+  // ... then the live list in class order: a stable counting sort (ranks
+  // inside each 32-entry chunk from a warp match, a block scan over class x
+  // chunk), so that a warp shades one class's lanes.
+  {
+    const int n_chunks = (live.count + 31) >> 5;
+    for (int i = threadIdx.x; i < n_keys * n_chunks; i += blockDim.x)
+      s_cnt[i] = 0;
+    __syncthreads();
+    const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
+    const int lane_id = threadIdx.x & 31;
+    const unsigned below = lanes_below();
+    int key[CHUNKS_PER_WARP], rank[CHUNKS_PER_WARP];
+#pragma unroll
+    for (int k = 0; k < CHUNKS_PER_WARP; ++k) {
+      const int chunk = warp + k * nw;
+      const int pos = chunk * 32 + lane_id;
+      key[k] = chunk < n_chunks && pos < live.count ? s_key[pos] : n_keys;
+      const unsigned peers = __match_any_sync(0xffffffffu, key[k]);
+      rank[k] = __popc(peers & below);
+      if (key[k] < n_keys && rank[k] == 0)
+        s_cnt[key[k] * n_chunks + chunk] = __popc(peers);
+    }
+    __syncthreads();
+    scan_block(s_cnt, n_keys * n_chunks, s_tot);
+#pragma unroll
+    for (int k = 0; k < CHUNKS_PER_WARP; ++k) {
+      const int chunk = warp + k * nw;
+      if (key[k] < n_keys)
+        s_order[s_cnt[key[k] * n_chunks + chunk] + rank[k]] =
+            (unsigned short)(chunk * 32 + lane_id);
+    }
+  }
+  __syncthreads();
   unsigned rays = 0;
-  if (lane < n) {
+#pragma unroll 1
+  for (int q = live.first; q < live.count; q += live.step) {
+    const int pos = s_order[q];
+    const int lane = live.lanes[pos];
     float in[9], out[12];
     for (int j = 0; j < 9; ++j) in[j] = fin[j * stride + lane];
     int alive = 0, spec = 0;
-    if (alive_in[lane] > 0) {
-      rays = bounce_lane(P, in, spec_in[lane] > 0, (uint32_t)pix[lane],
-                         (uint32_t)samp[lane], out, alive, spec);
-    } else {
-      // Dead lane: zero radiance, origin/dir/beta passed through.
-      out[0] = out[1] = out[2] = 0.0f;
-      for (int j = 0; j < 9; ++j) out[3 + j] = in[j];
-    }
+    rays += bounce_lane(P, in, s_t[pos], s_pid[pos], spec_in[lane] > 0,
+                        (uint32_t)pix[lane], (uint32_t)samp[lane], lane,
+                        sq, out, alive, spec);
     for (int j = 0; j < 12; ++j) fout[j * stride + lane] = out[j];
     alive_out[lane] = alive;
     spec_out[lane] = spec;
   }
+  __syncthreads();
+  sweep_queue(sq, P.bank, fout, stride);
   count_rays(rays, count);
 }
 
@@ -627,17 +752,25 @@ extern "C" {
 // fin [9, n] float32 (origin, dir, beta); alive_in, spec_in, pix, samp [n]
 // int32; fout [12, n] float32 (radiance, next origin, next dir, next beta);
 // alive_out, spec_out [n] int32; count: one uint64 the bounce's traced rays
-// are added to. tex_kinds_mask is the bit set of the texture kinds the
-// textured slots use; rng 0 draws PCG, 1 Sobol'. Returns cudaGetLastError() after the launch.
+// are added to. mat_class [n_mats + 1] int32: each material row's shading
+// class in [0, n_classes), then a missed lane's. tex_kinds_mask is the bit
+// set of the texture kinds the textured slots use; rng 0 draws PCG, 1
+// Sobol'. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue without one for a class count the kernel does
+// not take, or a bank that does not fit shared memory beside the kernel's
+// static arrays).
 int pbrs_fused_single_lobe(
     const float* bank, int n_sph, int n_quad, int n_tri, int n_disk,
-    const float* mats, int n_mats, int mat_cols, const float* texs,
+    const float* mats, int n_mats, int mat_cols, const int* mat_class,
+    int n_classes, const float* texs,
     int n_texs, int tex_kinds_mask, const float* lights, int n_area,
     const float* delta, int n_delta, const float* env, int env_kind,
     int two_slots, int rng, int seed, int bounce,
     int first, int rr_active, const float* fin, const int* alive_in,
     const int* spec_in, const int* pix, const int* samp, int n, float* fout,
     int* alive_out, int* spec_out, void* count, void* stream) {
+  if (n_classes < 1 || n_classes + 1 > pbrs::MAX_KEYS)
+    return (int)cudaErrorInvalidValue;
   pbrs::Params P;
   P.bank = pbrs::Bank{nullptr, n_sph, n_quad, n_tri, n_disk};
   P.bank_g = bank;
@@ -661,15 +794,40 @@ int pbrs_fused_single_lobe(
   P.rr_active = rr_active;
   const int n_rows = n_sph + n_quad + n_tri + n_disk;
   const int smem = n_rows * pbrs::BANK_COLS * (int)sizeof(float);
-  if (smem > 48 * 1024 - 128)
-    cudaFuncSetAttribute(pbrs::fused_single_lobe_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  const int block = 256;
-  const int grid = (n + block - 1) / block;
-  pbrs::fused_single_lobe_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      P, fin, alive_in, spec_in, pix, samp, n, fout, alive_out, spec_out,
-      (unsigned long long*)count);
+  const cudaError_t e = pbrs::fit_smem(pbrs::fused_single_lobe_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (n + pbrs::LOBE_WINDOW - 1) / pbrs::LOBE_WINDOW;
+  pbrs::fused_single_lobe_kernel<<<grid, pbrs::LOBE_BLOCK, smem,
+                                   (cudaStream_t)stream>>>(
+      P, mat_class, n_classes, fin, alive_in, spec_in, pix, samp, n, fout,
+      alive_out, spec_out, (unsigned long long*)count);
   return (int)cudaGetLastError();
+}
+
+// K3 as ptxas built it and as it launches on one SM with an n_rows bank:
+// info[0] registers a thread, info[1] local memory bytes a thread (spills
+// and stack), info[2] resident warps an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), info[3] threads a block,
+// info[4] lanes a block's window, info[5] static shared bytes a block.
+int pbrs_fused_single_lobe_info(int n_rows, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t e =
+      cudaFuncGetAttributes(&attr, pbrs::fused_single_lobe_kernel);
+  if (e != cudaSuccess) return (int)e;
+  const int smem = n_rows * pbrs::BANK_COLS * (int)sizeof(float);
+  e = pbrs::fit_smem(pbrs::fused_single_lobe_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, pbrs::fused_single_lobe_kernel, pbrs::LOBE_BLOCK, smem);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  info[2] = blocks * pbrs::LOBE_BLOCK / 32;
+  info[3] = pbrs::LOBE_BLOCK;
+  info[4] = pbrs::LOBE_WINDOW;
+  info[5] = (int)attr.sharedSizeBytes;
+  return 0;
 }
 
 }  // extern "C"

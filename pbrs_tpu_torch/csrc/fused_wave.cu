@@ -510,33 +510,6 @@ static __device__ unsigned shade_lane(const WParams& P, const float* s_mats,
   return (hit && n_lights > 0) ? (P.folded ? 1u : 2u) : 0u;
 }
 
-// Exclusive prefix sum of a[0, len) in place, by the whole block (a in
-// shared memory; warp_tot holds 32 ints of scratch).
-static __device__ __forceinline__ void block_exclusive_scan(int* a, int len,
-                                                            int* warp_tot) {
-  const int per = (len + BLOCK - 1) / BLOCK;
-  const int lo = threadIdx.x * per;
-  const int hi = lo + per < len ? lo + per : len;
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += a[i];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = sum;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_tot[warp] = x;
-  __syncthreads();
-  int run = x - sum;
-  for (int w = 0; w < warp; ++w) run += warp_tot[w];
-  for (int i = lo; i < hi; ++i) {
-    const int c = a[i];
-    a[i] = run;
-    run += c;
-  }
-  __syncthreads();
-}
-
 // Dynamic shared memory of a block: the material table with a zero row,
 // the row classes, the class x chunk counts, the sorted lane offsets, then
 // n_stage output planes of the window.
@@ -599,7 +572,7 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS)
     if (kk < n_keys && rank[k] == 0) s_cnt[kk * CHUNKS + chunk] = __popc(peers);
   }
   __syncthreads();
-  block_exclusive_scan(s_cnt, n_keys * CHUNKS, warp_tot);
+  scan_block(s_cnt, n_keys * CHUNKS, warp_tot);
 #pragma unroll
   for (int k = 0; k < PER_WARP; ++k) {
     const int chunk = warp + k * (BLOCK / 32);

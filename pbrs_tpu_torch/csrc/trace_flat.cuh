@@ -1,4 +1,5 @@
-// Shared device code of the flat-bank trace (K1) and the fused bounce (K2).
+// Shared device code of the flat-bank trace (K1) and the fused bounces (K2,
+// K3).
 //
 // The closest-hit sweep of one ray over the [P,16] primitive bank, in the
 // arithmetic of pbrs_tpu/accel/trace_pallas.py:_trace_kernel (and its
@@ -6,7 +7,10 @@
 // disks in that order, `t < t_best` so ties keep the lowest row. Every
 // expression keeps the reference's evaluation order; the library is built
 // with -fmad=false, so each product and sum rounds as PyTorch's one-op
-// kernels round it.
+// kernels round it. Terms that depend on the row alone (a quad's 1 / |n|^2)
+// are computed once a block when the bank is staged, and terms that depend
+// on the ray alone (a sphere test's |d|^2 and its reciprocal) once a ray:
+// the same IEEE operation on the same operand, so the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,6 +19,9 @@
 namespace pbrs {
 
 constexpr int BANK_COLS = 16;
+// Where the staged bank keeps a quad row's 1 / |n|^2: a column every family
+// leaves zero in the [P,16] bank (accel/trace_kernel.py:prim_scalars).
+constexpr int QUAD_RCP_COL = 14;
 constexpr float T_MIN = (float)1.19209290e-07;  // geometry/ray.py T_MIN
 constexpr float BIG = 3.0e38f;
 
@@ -59,13 +66,13 @@ static __device__ __forceinline__ void sweep(const float* bank, int n_sph,
   const float rox = r.ox, roy = r.oy, roz = r.oz;
   const float rdx = r.dx, rdy = r.dy, rdz = r.dz;
   int row = 0;
+  const float a = rdx * rdx + rdy * rdy + rdz * rdz;
+  const float inv_a = n_sph > 0 ? 1.0f / max0(a, (float)1e-30) : 0.0f;
   for (int i = 0; i < n_sph; ++i, ++row) {
     const float* p = bank + row * BANK_COLS;
     const float cx = p[0], cy = p[1], cz = p[2], rad = p[3];
     const float fx = rox - cx, fy = roy - cy, fz = roz - cz;
-    const float a = rdx * rdx + rdy * rdy + rdz * rdz;
     const float b_pr = -(fx * rdx + fy * rdy + fz * rdz);
-    const float inv_a = 1.0f / max0(a, (float)1e-30);
     const float mx = fx + b_pr * inv_a * rdx;
     const float my = fy + b_pr * inv_a * rdy;
     const float mz = fz + b_pr * inv_a * rdz;
@@ -90,7 +97,7 @@ static __device__ __forceinline__ void sweep(const float* bank, int n_sph,
     const float ux = p[3], uy = p[4], uz = p[5];
     const float vx = p[6], vy = p[7], vz = p[8];
     const float nx = p[9], ny = p[10], nz = p[11];
-    const float inv_n2 = 1.0f / p[12];
+    const float inv_n2 = p[QUAD_RCP_COL];  // 1.0f / p[12], staged
     const float denom = rdx * nx + rdy * ny + rdz * nz;
     const float denom_s = (denom == 0.0f) ? 1.0f : denom;
     const float t =
@@ -157,19 +164,31 @@ static __device__ __forceinline__ void sweep(const float* bank, int n_sph,
   }
 }
 
-// Copy the bank into shared memory; every thread of the block helps.
+// Copy the bank into shared memory, every thread of the block helping, with
+// each quad row's 1 / |n|^2 (rows [q0, q1)) in column QUAD_RCP_COL; the
+// sweep reads it there.
 static __device__ __forceinline__ void stage_bank(float* s_bank,
                                                   const float* bank,
-                                                  int n_rows) {
-  for (int i = threadIdx.x; i < n_rows * BANK_COLS; i += blockDim.x)
-    s_bank[i] = bank[i];
+                                                  int n_rows, int q0,
+                                                  int q1) {
+  for (int i = threadIdx.x; i < n_rows * BANK_COLS; i += blockDim.x) {
+    const int row = i / BANK_COLS;
+    const bool rcp =
+        i - row * BANK_COLS == QUAD_RCP_COL && row >= q0 && row < q1;
+    s_bank[i] = rcp ? 1.0f / bank[row * BANK_COLS + 12] : bank[i];
+  }
   __syncthreads();
 }
 
-// Dynamic shared memory a block may use on sm_90 (227 KB).
+// Shared memory a block may use on sm_90 (227 KB), static and dynamic.
 constexpr int MAX_SMEM_BYTES = 232448;
-// Room is left for the kernels' small static shared arrays.
-constexpr int MAX_BANK_ROWS =
-    (MAX_SMEM_BYTES - 1024) / (BANK_COLS * (int)sizeof(float));
+// Room left beside a staged bank for the static shared arrays of the
+// kernels that stage it, the largest of them K3's (31.1 KB: a window's
+// live-lane list, closest hits and class sort, 15 KB; the shadow-ray queue,
+// 11 KB; the class x chunk counts, 4 KB). K2's and K3's launches check
+// their own static size against it (bounce_common.cuh:fit_smem).
+constexpr int STATIC_SMEM_RESERVE = 32768;
+constexpr int MAX_BANK_ROWS = (MAX_SMEM_BYTES - STATIC_SMEM_RESERVE) /
+                              (BANK_COLS * (int)sizeof(float));
 
 }  // namespace pbrs

@@ -44,10 +44,12 @@ _SIGNATURES = {
     "pbrs_fused_bounce": [_VP, _I, _I, _I, _I, _VP, _I, _VP, _I, _VP, _I,
                           _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP, _I, _VP,
                           _VP, _VP, _VP],
-    "pbrs_fused_single_lobe": [_VP, _I, _I, _I, _I, _VP, _I, _I, _VP, _I, _I,
-                               _VP, _I, _VP, _I, _VP, _I, _I, _I, _I, _I, _I,
-                               _I, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP, _VP,
-                               _VP, _VP],
+    "pbrs_fused_bounce_info": [_I, _VP],
+    "pbrs_fused_single_lobe": [_VP, _I, _I, _I, _I, _VP, _I, _I, _VP, _I,
+                               _VP, _I, _I, _VP, _I, _VP, _I, _VP, _I, _I, _I,
+                               _I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _I,
+                               _VP, _VP, _VP, _VP, _VP],
+    "pbrs_fused_single_lobe_info": [_I, _VP],
     "pbrs_trace_bvh": [_VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _VP,
                        _VP, _I, _VP],
     "pbrs_fused_wave": [_VP, _I, _I, _I, _VP, _I, _VP, _I, _VP, _I, _F, _I,

@@ -1,5 +1,6 @@
 """Where the time goes on the card, for one scene and route.
 
+    python -m pbrs_tpu_torch.profiling --scene_name cornell_box --depth 8
     python -m pbrs_tpu_torch.profiling --scene_name plates \\
         --resolution 1024x1024 --depth 5 --msaa 2 --route auto general
     python -m pbrs_tpu_torch.profiling --scene_name mesh_ball --levels 5 \\
@@ -12,8 +13,11 @@ For each route: wall time per sample index (host clock around work that
 ends in a synchronize), device busy time per sample (the self device time
 of every kernel in a torch.profiler window), the busy share, the kernels
 that take most of the device time, and the device time of camera-ray
-generation alone (CUDA events). Prints one JSON line per route, with the
-card's name. CUDA only.
+generation alone (CUDA events). On route auto through a fused bounce (K2
+for Cornell, K3 for plates), also each of that kernel's launches in sample
+0, replayed: its live lanes and device ms, and their sum a sample, drawing
+PCG and Sobol'. Prints one JSON line per route, with the card's name. CUDA
+only.
 """
 
 from __future__ import annotations
@@ -33,37 +37,55 @@ def _device_us(evt):
     return 0.0
 
 
-def single_lobe_bounce_ms(scene, depth, msaa, sample=0):
-    """[(alive lanes in, K3 device ms)] per bounce of one sample index."""
+def fused_launches(scene, depth, msaa, sampler, sample=0):
+    """Every launch of the fused bounce (K2 or K3, as route auto picks) in
+    one sample index of the scene: (integrator name, the wrapper, [(args,
+    kwargs)] of each launch in bounce order). The kernels only write their
+    outputs, so a recorded launch's inputs stay as they were."""
+    from . import render
+    from .accel import fused_kernel as fk
     from .accel import fused_single_lobe as fsl
-    from .core import sampler as smp
-    from .integrators import wavefront
 
-    tab = fsl.SingleLobeTables.from_scene(scene)
     n = scene.camera.width * scene.camera.height
-    dev = scene.device
-    pix = torch.arange(n, dtype=torch.int32, device=dev)
-    rays = wavefront.camera_rays(scene, smp.PCGSampler(0), pix, sample, msaa)
-    fin = torch.cat([rays.origin.T, rays.dir.T,
-                     torch.ones(3, n, device=dev)]).contiguous()
-    alive = torch.ones(n, dtype=torch.int32, device=dev)
-    spec = torch.zeros(n, dtype=torch.int32, device=dev)
-    samp = torch.full((n,), sample, dtype=torch.int32, device=dev)
-    count = torch.zeros(1, dtype=torch.int64, device=dev)
-    out = []
-    for b in range(depth):
-        live = int((alive > 0).sum())
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fout, alive, spec = fsl.bounce2(
-            tab, fin, alive, spec, pix, samp, count, seed=0, bounce=b,
-            bounce_is_first=b == 0, rr_active=b > 3)
-        end.record()
-        torch.cuda.synchronize()
-        out.append((live, start.elapsed_time(end)))
-        fin = fout[3:]
-    return out
+    pix = torch.arange(n, dtype=torch.int32, device=scene.device)
+    name, step = render.make_integrator(scene, sampler, depth, msaa, "auto")
+    mod, attr = {"fused": (fk, "bounce"),
+                 "fused_single_lobe": (fsl, "bounce2")}[name]
+    wrapper, launches = getattr(mod, attr), []
+
+    def record(*args, **kw):
+        launches.append((args, kw))
+        return wrapper(*args, **kw)
+
+    setattr(mod, attr, record)
+    try:
+        step(pix, sample)
+    finally:
+        setattr(mod, attr, wrapper)
+    return name, wrapper, launches
+
+
+def replay(wrapper, args, kw):
+    """One recorded launch again, adding its ray count to a fresh counter
+    (the count tensor is the second to last argument)."""
+    args = list(args)
+    args[-1] = torch.zeros_like(args[-1])
+    return wrapper(*args, **kw)
+
+
+def per_bounce_ms(scene, depth, msaa, sampler, iters=20):
+    """[{bounce, live lanes in, device ms}] of every fused-bounce launch of
+    sample 0, each replayed `iters` times (CUDA events), and their sum."""
+    from .tools.prof_rounds import cuda_ms
+
+    _, wrapper, launches = fused_launches(scene, depth, msaa, sampler)
+    rows = []
+    for b, (args, kw) in enumerate(launches):
+        alive = args[2]
+        rows.append({"bounce": b, "live": int((alive > 0).sum()),
+                     "ms": cuda_ms(lambda: replay(wrapper, args, kw),
+                                   iters)})
+    return rows, sum(r["ms"] for r in rows)
 
 
 def profile_route(scene, route, depth, msaa, samples=4, warmup=2):
@@ -130,6 +152,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("pbrs_tpu_torch.profiling: no CUDA device")
+    from . import render
     from .cli import with_resolution
     from .scene import presets
 
@@ -146,9 +169,13 @@ def main(argv=None) -> int:
     for route in args.route:
         out = profile_route(scene, route, args.depth, args.msaa,
                             samples=args.samples)
-        if out["integrator"] == "fused_single_lobe":
-            out["k3_per_bounce"] = single_lobe_bounce_ms(scene, args.depth,
-                                                         args.msaa)
+        if route == "auto" and out["integrator"] in ("fused",
+                                                     "fused_single_lobe"):
+            for rng in ("pcg", "sobol"):
+                rows, total = per_bounce_ms(scene, args.depth, args.msaa,
+                                            render.SAMPLERS[rng](0))
+                out[f"per_bounce_{rng}"] = rows
+                out[f"per_bounce_{rng}_sum_ms"] = total
         out.update(scene=label, levels=args.levels,
                    resolution=args.resolution,
                    device=torch.cuda.get_device_name(0))
