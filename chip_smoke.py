@@ -168,6 +168,7 @@ def phase_build():
     if len(frames) != 8 or any(f[1] for f in frames):
         raise AssertionError(f"K5 keeps a stack frame: {frames}")
     fused_kernel_lines()
+    k6_kernel_lines()
     from pbrs_tpu_torch.accel import bvh, native
 
     lo = np.random.default_rng(0).uniform(-1, 1, (64, 3)).astype(np.float32)
@@ -2287,80 +2288,45 @@ def phase_direct(dev, smi):
 K6_NODE_OPS = 26
 K6_PRIM_OPS = (94, 69, 60, 36)
 K6_SUBSET = 1 << 16  # lanes of each K6 ray set held against the plain walk
-K6_RANDOM_PRIMS = 4096  # random spheres and disks of the K6 phase
 # K6 against K5 on mesh_ball's triangles (different triangle tests, so a
 # ray at an edge or at a grazing angle may hit on one only): at most this
 # share of lanes may differ in whether they hit, or in t beyond rtol 1e-5.
 K6_K5_SHARE = 1e-4
+# The stack depth at which phase 1 reports K6's resident warps (phase 25
+# reports each tracer's own).
+K6_INFO_DEPTH = 16
+K6_KINDS = ("triangle", "quad", "sphere", "disk")
 
 
-def pinhole_rays(lo, hi, n, dev):
-    """n coherent rays from a pinhole in front of the box [lo, hi], on a
-    square grid of directions over the box's front face."""
-    from pbrs_tpu_torch.geometry import ray as ray_mod
-
-    ctr, ext = (lo + hi) / 2, hi - lo
-    eye = ctr - np.array([0.0, 0.0, 2.0 * ext.max()])
-    side = int(np.sqrt(n))
-    u = (np.arange(n) % side + 0.5) / side - 0.5
-    v = (np.arange(n) // side + 0.5) / side - 0.5
-    d = np.stack([u * ext[0], v * ext[1], np.full(n, ctr[2] - eye[2])], 1)
-    o = np.broadcast_to(eye, (n, 3))
-    return ray_mod.make_rays(
-        torch.from_numpy(o.astype(np.float32)).to(dev),
-        torch.from_numpy(d.astype(np.float32)).to(dev))
-
-
-def k6_tracers(dev, rng):
-    """{label: (tracer, coherent rays, incoherent rays)} of the K6 phase:
-    mesh_ball(levels=5)'s 16384 triangles, everything's 2401 quads, and
-    K6_RANDOM_PRIMS random spheres and disks; 2^20 rays a set."""
+def k6_kernel_lines():
+    """Phase 1's lines for K6's eight instances (kind x closest / any hit):
+    registers, stack and spills (ptxas), resident warps an SM at a
+    K6_INFO_DEPTH-entry stack. Fails on a stack frame or a spill."""
     from pbrs_tpu_torch.accel import mesh_bvh as mb
-    from pbrs_tpu_torch.scene import presets
-    from pbrs_tpu_torch.tools import prof_rounds as pr
 
-    out = {}
-    scene, (p0, p1, p2) = pr.mesh_ball_tris(dev)
-    tracer = mb.MeshBVHTracer(p0, p1, p2, 0, device=dev)
-    out["mesh_ball triangles"] = (tracer,) + pr.ray_sets(
-        scene, p0.min(0), p0.max(0), dev, n=N_RAYS)
-    scene = presets.everything().to(dev)
-    g = scene.geom
-    o, u, v = (x.cpu().numpy() for x in (g.quad_origin, g.quad_u, g.quad_v))
-    corners = np.stack([o, o + u, o + v, o + u + v])
-    gid = np.arange(o.shape[0]).astype(np.float32)
-    tracer = mb.PrimBVHTracer(mb.KIND_QUAD, mb.quad_slot_cols(o, u, v, gid),
-                              corners.min(0), corners.max(0), device=dev)
-    out["everything quads"] = (tracer,) + pr.ray_sets(
-        scene, corners.min((0, 1)), corners.max((0, 1)), dev, n=N_RAYS)
-    n = K6_RANDOM_PRIMS
-    c = rng.uniform(-10, 10, (n, 3)).astype(np.float32)
-    gid = np.arange(n).astype(np.float32)
-    r = rng.uniform(0.05, 0.5, n).astype(np.float32)
-    nrm = rng.normal(size=(n, 3)).astype(np.float32)
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    radial = np.cross(nrm, rng.normal(size=(n, 3))).astype(np.float32)
-    radial *= r[:, None] / np.linalg.norm(radial, axis=1, keepdims=True)
-    radial = radial.astype(np.float32)
-    for label, kind, cols, ext in (
-            ("random spheres", mb.KIND_SPHERE,
-             mb.sphere_slot_cols(c, r, gid), r[:, None]),
-            ("random disks", mb.KIND_DISK,
-             mb.disk_slot_cols(c, nrm, radial, gid), r[:, None])):
-        lo, hi = c - ext, c + ext
-        tracer = mb.PrimBVHTracer(kind, cols, lo, hi, device=dev)
-        incoherent = pr.ray_sets(scene, lo.min(0), hi.max(0), dev,
-                                 n=N_RAYS)[1]
-        out[label] = (tracer, pinhole_rays(lo.min(0), hi.max(0), N_RAYS,
-                                           dev), incoherent)
-    return out
+    for kind, name in enumerate(K6_KINDS):
+        for any_hit in (False, True):
+            stack, spill_st, spill_ld = ptxas_spills(
+                f"trace_prim_bvh_kernelILi{kind}ELb{int(any_hit)}E")
+            info = mb.kernel_info(kind, any_hit, K6_INFO_DEPTH)
+            print(f"phase 1 K6 kernel, {name} "
+                  f"{'any hit' if any_hit else 'closest'}: "
+                  f"{info['registers']} registers, {stack} B stack, "
+                  f"{spill_st} / {spill_ld} B spill stores / loads (ptxas); "
+                  f"{info['warps_per_sm']} resident warps an SM at a "
+                  f"{K6_INFO_DEPTH}-entry stack ({info['threads']} threads a "
+                  f"block, {info['dynamic_smem']} B dynamic shared memory)")
+            if stack or spill_st or spill_ld:
+                raise AssertionError(f"K6 ({name}, any_hit={any_hit}) keeps "
+                                     f"a stack frame or spills: {stack} B, "
+                                     f"{spill_st} / {spill_ld} B")
 
 
 def k6_check(tracer, rays, any_hit, subset):
     """K6 through the tracer (sorted lanes) against its plain walk on the
     lanes `subset` (None: all): (lanes whose t bits differ, whose id
     differs, hits, plain ms, {node_tests, prim_tests} of the checked
-    lanes, kernel (t, id))."""
+    lanes, kernel (t, id), the checked planes)."""
     from pbrs_tpu_torch.accel import mesh_bvh as mb
     from pbrs_tpu_torch.geometry import ray as ray_mod
 
@@ -2370,34 +2336,79 @@ def k6_check(tracer, rays, any_hit, subset):
         planes, t_c, id_c = planes[:, subset], t_k[subset], id_k[subset]
     else:
         t_c, id_c = t_k, id_k
+    planes = planes.contiguous()
     work = {}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    t_p, id_p = mb.walk_reference(tracer, planes.contiguous(), any_hit, work)
+    t_p, id_p = mb.walk_reference(tracer, planes, any_hit, work)
     end.record()
     torch.cuda.synchronize()
     bad_t = int((t_c.view(torch.int32) != t_p.view(torch.int32)).sum())
     bad_id = int((id_c != id_p).sum())
     return (bad_t, bad_id, int(torch.isfinite(t_c).sum()),
-            start.elapsed_time(end), work, (t_k, id_k))
+            start.elapsed_time(end), work, (t_k, id_k), (planes, id_c))
 
 
-def phase_k6(dev, smi, rng):
+def left_turns(tracer):
+    """Per leaf-order slot, the pairs above its leaf whose left child holds
+    it: the right children that a pair walk ending in that leaf has tested
+    and that K6's earlier skip-link walk does not reach."""
+    refs = tracer.nodes[:, 12:16].cpu().contiguous().view(torch.int32).numpy()
+    above = np.zeros(tracer.n_pairs, np.int64)
+    turns = np.zeros(tracer.n_prims, np.int64)
+    for p in range(1, tracer.n_pairs):
+        for side in (0, 1):
+            ref, cnt = refs[p, 2 * side], refs[p, 2 * side + 1]
+            k = above[p] + (side == 0)
+            if cnt > 0:
+                turns[ref:ref + cnt] = k
+            else:
+                above[ref] = k
+    return turns
+
+
+def skip_walk_node_tests(tracer, planes, ids, work, any_hit, turns):
+    """The node tests the skip-link walk makes for these lanes: the pair
+    walk's, less the NaN box beside the root (one a live lane) and, for an
+    any hit, the right children tested ahead of the hit
+    (tests/test_torch_mesh_bvh.py holds this count against that walk)."""
+    ahead = 0
+    if any_hit:
+        hit = ids[ids >= 0].long().cpu().numpy()
+        slot_of = np.zeros(int(tracer.slot_gid.max()) + 1, np.int64)
+        slot_of[tracer.slot_gid.cpu().numpy()] = np.arange(tracer.n_prims)
+        ahead = int(turns[slot_of[hit]].sum())
+    return work["node_tests"] - int((planes[6] > 0).sum()) - ahead
+
+
+def phase_k6(dev, smi):
     """Phase 25, K6 (csrc/trace_prim_bvh.cu) on its own path, the
     PrimBVHTracer / MeshBVHTracer entry points (no render path reaches
-    it): each tracer on 2^20 coherent and 2^20 incoherent rays, closest
-    and any hit, against the plain walk on every 16th lane (all lanes of
-    mesh_ball's coherent closest hit, the timed entry); mesh_ball's
-    closest hits against K5's; a poisoned skip table; the device ms a
-    launch and its bound. Returns the kernel's report and its launches."""
+    it): each tracer of prof_rounds.k6_sets on 2^20 coherent and 2^20
+    incoherent rays, closest and any hit, against the plain walk on every
+    16th lane (all lanes of mesh_ball's coherent closest hit, the timed
+    entry); mesh_ball's closest hits against K5's, and K5's ms on the
+    same planes; the whole MeshBVHTracer.trace call; a poisoned pair table;
+    the device ms a launch and its bound. Returns the kernel's report and
+    its launches."""
     import copy
 
     from pbrs_tpu_torch.accel import mesh_bvh as mb
     from pbrs_tpu_torch.accel import treelet as tl
     from pbrs_tpu_torch.geometry import ray as ray_mod
+    from pbrs_tpu_torch.tools import prof_rounds as pr
 
-    sets = k6_tracers(dev, rng)
+    sets = pr.k6_sets(dev)
+    for label, (tracer, _, _) in sets.items():
+        info = [mb.kernel_info(tracer.kind, ah, tracer.stack_depth)
+                for ah in (False, True)]
+        print(f"phase 25 K6 {label}: {tracer.n_prims} prims, "
+              f"{tracer.num_nodes} nodes, {tracer.n_pairs} pairs, a "
+              f"{tracer.stack_depth}-entry stack; {info[0]['warps_per_sm']} "
+              f"/ {info[1]['warps_per_sm']} resident warps an SM (closest / "
+              f"any hit; {info[0]['dynamic_smem']} B dynamic shared memory "
+              f"a block)")
     subset = torch.arange(0, N_RAYS, N_RAYS // K6_SUBSET, device=dev)
     mb.LAUNCHES = 0
     results = {}
@@ -2412,36 +2423,49 @@ def phase_k6(dev, smi, rng):
     launches = mb.LAUNCHES
     report = {"max_abs_err": 0.0}
     bad_total = 0
+    set_ms, set_bound = [], []
     for (label, rays_label, any_hit), res in results.items():
-        bad_t, bad_id, hits, plain_ms, work, _ = res
+        bad_t, bad_id, hits, plain_ms, work, _, (checked, ids) = res
         tracer, rays = sets[label][0], sets[label][1 if rays_label ==
                                                       "coherent" else 2]
-        order = mb._octant_cell_order(rays)
-        planes = ray_mod.to_planes(ray_take(rays, order))
+        planes = pr.k6_launch_planes(tracer, rays)
         ms = cuda_ms(lambda: mb.trace_planes(tracer, planes, any_hit), 10)
         entry = (label, rays_label, any_hit) == ("mesh_ball triangles",
                                                  "coherent", False)
         scale = 1 if entry else N_RAYS / K6_SUBSET
         tables = 4 * (tracer.nodes.numel() + tracer.fields.numel()
                       + tracer.slot_gid.numel())
-        b_ms, by = bound(N_RAYS * (7 * 4 + 8) + tables, scale * (
-            work.get("node_tests", 0) * K6_NODE_OPS
-            + work.get("prim_tests", 0) * K6_PRIM_OPS[tracer.kind]))
+        # The bound as K6's skip-link walk counted it: ray bytes and the
+        # tables against that walk's node tests (the pair walk's beside it).
+        skip_nodes = skip_walk_node_tests(tracer, checked, ids, work,
+                                          any_hit, left_turns(tracer))
+        prims = scale * work.get("prim_tests", 0)
+        b_ms, by = bound(N_RAYS * (7 * 4 + 8) + tables, scale * skip_nodes
+                         * K6_NODE_OPS + prims * K6_PRIM_OPS[tracer.kind])
+        b_pair, by_pair = bound(N_RAYS * (7 * 4 + 8) + tables, scale * work[
+            "node_tests"] * K6_NODE_OPS + prims * K6_PRIM_OPS[tracer.kind])
         mode = "any hit" if any_hit else "closest"
-        print(f"phase 25 K6 {label} ({tracer.n_prims} prims, "
-              f"{tracer.num_nodes} nodes), {rays_label} {mode}: "
-              f"{N_RAYS} rays, {hits} hits of {int(N_RAYS / scale)} checked;"
-              f" lanes differing from the plain walk: t bits {bad_t}, id "
-              f"{bad_id}; {ms:.4f} ms a launch, plain {plain_ms:.2f} ms, "
-              f"bound {b_ms:.4f} ms ({by}; {scale * work.get('node_tests', 0):.4g}"
-              f" node and {scale * work.get('prim_tests', 0):.4g} primitive "
-              f"tests) [{smi}]")
+        print(f"phase 25 K6 {label}, {rays_label} {mode}: {N_RAYS} rays, "
+              f"{hits} hits of {int(N_RAYS / scale)} checked; lanes "
+              f"differing from the plain walk: t bits {bad_t}, id {bad_id}; "
+              f"{ms:.4f} ms a launch, plain {plain_ms:.2f} ms, bound "
+              f"{b_ms:.4f} ms ({by}; {scale * skip_nodes:.6g} node tests of "
+              f"the skip-link walk, {prims:.6g} primitive tests; the pair "
+              f"walk's {scale * work['node_tests']:.6g} node tests: "
+              f"{b_pair:.4f} ms, {by_pair}) [{smi}]")
         bad_total += bad_t + bad_id
+        set_ms.append(ms)
+        set_bound.append(b_ms)
         if entry:
             report.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                           bound_by=by)
     if bad_total:
         raise AssertionError("K6 disagrees with its plain walk")
+    report.update(sets_mean_ms=sum(set_ms) / len(set_ms),
+                  sets_mean_bound_ms=sum(set_bound) / len(set_bound))
+    print(f"phase 25 K6 over the {len(set_ms)} sets: mean "
+          f"{report['sets_mean_ms']:.4f} ms a launch, mean bound "
+          f"{report['sets_mean_bound_ms']:.4f} ms [{smi}]")
     # K6 against K5 on the same triangles. K5 settles exact-t ties by the
     # lowest id, K6 by the first leaf visited; their triangle tests differ,
     # so only t and whether a ray hits are compared.
@@ -2460,32 +2484,59 @@ def phase_k6(dev, smi, rng):
         t_diff = int((both & ~torch.isclose(t6, t5, rtol=1e-5,
                                             atol=0.0)).sum())
         err = float((t6 - t5).abs()[both].max()) if bool(both.any()) else 0.0
+        planes = pr.k6_launch_planes(tracer, rays)
+        k5_ms = cuda_ms(lambda: tl.trace_planes(fam, planes), 10)
+        k6_ms = cuda_ms(lambda: mb.trace_planes(tracer, planes), 10)
         print(f"phase 25 K6 vs K5 on mesh_ball, {rays_label} closest: "
               f"lanes hitting on one only {hit_diff}, t beyond rtol 1e-5 "
               f"{t_diff} of {int(both.sum())} hit by both; max |dt| "
-              f"{err:.3g}")
+              f"{err:.3g}; on the same planes K6 {k6_ms:.4f} ms, K5 "
+              f"{k5_ms:.4f} ms a launch [{smi}]")
         if max(hit_diff, t_diff) > K6_K5_SHARE * N_RAYS:
             raise AssertionError("K6 and K5 disagree on mesh_ball")
-    # A poisoned skip table (every link back to the root) terminates: rays
-    # missing the root box miss; rays that enter it cycle to the step cap.
+    call_ms = cuda_ms(lambda: tracer.trace(coherent), 10)
+    print(f"phase 25 K6 MeshBVHTracer.trace on mesh_ball's {N_RAYS} "
+          f"coherent rays (sort, K6, un-permute): {call_ms:.4f} ms, K6 "
+          f"alone {report['ms']:.4f} ms [{smi}]")
+    # A poisoned pair table (every interior child below pair 0 points back
+    # to the root's pair) terminates: rays missing the root box miss; rays
+    # that enter it cycle, fill their stack and stop at the cap of n_pairs
+    # pair fetches, as the plain walk does.
     bad = copy.copy(tracer)
     bad.nodes = tracer.nodes.clone()
-    bad.nodes[:, 7] = 0.0
+    refs = bad.nodes[:, 12:16].view(torch.int32)
+    root_pair = int(refs[0, 0])
+    for side in (0, 1):
+        inner = refs[1:, 2 * side + 1] == 0
+        refs[1:, 2 * side][inner] = root_pair
     n = K6_SUBSET
     miss = ray_mod.make_rays(torch.full((n, 3), 100.0, device=dev),
                              torch.tensor([[1.0, 0.0, 0.0]],
                                           device=dev).expand(n, 3))
+    # Camera rays that hit the mesh enter the root box and a child box.
+    entry_t = results["mesh_ball triangles", "coherent", False][5][0]
+    cam = ray_take(coherent, torch.nonzero(torch.isfinite(entry_t))[:n, 0])
     t0 = time.time()
     t_m, id_m = bad.trace(miss)
-    t_c, _ = bad.trace(ray_take(coherent, subset))
+    t_c, id_c = bad.trace(cam, sort_rays=False)
     torch.cuda.synchronize()
-    print(f"phase 25 K6 poisoned skip table ({bad.num_nodes} nodes): {n} "
-          f"rays missing the root -> {int(torch.isinf(t_m).sum())} inf, "
-          f"{int((id_m == -1).sum())} id -1; {n} camera rays ended at the "
-          f"cap; {time.time() - t0:.2f} s")
+    secs = time.time() - t0
+    work = {}
+    t_p, id_p = mb.walk_reference(bad, ray_mod.to_planes(cam), False, work)
+    differ = int(((t_c.view(torch.int32) != t_p.view(torch.int32))
+                  | (id_c != id_p)).sum())
+    n_cam = cam.origin.shape[0]
+    fetches = work["node_tests"] / 2 / n_cam
+    print(f"phase 25 K6 poisoned pair table ({bad.n_pairs} pairs, a "
+          f"{bad.stack_depth}-entry stack): {n} rays missing the root -> "
+          f"{int(torch.isinf(t_m).sum())} inf, {int((id_m == -1).sum())} id "
+          f"-1; {n_cam} camera rays that hit the mesh ended after {fetches} "
+          f"pair fetches a ray (the cap: {bad.n_pairs}), lanes differing "
+          f"from the plain walk {differ}; {secs:.2f} s")
     if not (bool(torch.isinf(t_m).all()) and bool((id_m == -1).all())
-            and t_c.shape[0] == n):
-        raise AssertionError("a poisoned skip table did not end in misses")
+            and differ == 0 and n_cam == n and fetches == bad.n_pairs):
+        raise AssertionError("a poisoned pair table did not end at the cap "
+                             "as the plain walk does")
     return report, launches
 
 
@@ -2674,9 +2725,12 @@ def kernel_entry(name, source, replaces, launches, report):
             # K2 / K3: ms, plain_ms and bound_ms are means over the
             # launches of one main-path sample; beside them its sum and the
             # bounce-0 launch alone.
+            # K6: ms, plain_ms and bound_ms are the entry set's (mesh_ball's
+            # coherent closest hit); beside them the means over its 16 sets.
             **{k: report[k] for k in ("bounce0_ms", "sample_ms",
                                       "sample_bound_ms",
-                                      "launches_per_sample")
+                                      "launches_per_sample", "sets_mean_ms",
+                                      "sets_mean_bound_ms")
                if k in report}}
 
 
@@ -2723,7 +2777,7 @@ def main():
     k4_folded = run(phase_wave, dev, seen, nee_mode="folded", phase=23)
     del seen
     run(phase_direct, dev, smi)
-    k6, k6_launches = run(phase_k6, dev, smi, rng)
+    k6, k6_launches = run(phase_k6, dev, smi)
     mm, mm_launches = run(phase_mm, dev, smi)
     run(phase_options, dev, smi)
     run(phase_accuracy, dev, smi)

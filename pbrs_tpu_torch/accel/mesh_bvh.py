@@ -1,30 +1,42 @@
 """Single-kind primitive-BVH closest-hit / any-hit trace (kernel K6).
 Mirrors pbrs_tpu/accel/mesh_pallas.py: the slot-column builders, the
 packing, PrimBVHTracer and MeshBVHTracer with their constructor arguments
-(the TPU's `interpret` and `block_rows` dropped; `device` added) and ``trace(rays, any_hit=, sort_rays=)``.
+(the TPU's `interpret` and `block_rows` dropped; `device` added, "cuda"
+unless the caller asks for the CPU) and ``trace(rays, any_hit=,
+sort_rays=)``.
 
 The tree is accel/bvh.py's, with leaves of at most TRIS_PER_LEAF = 9
-primitives, so its DFS order, its skip links and its tie order are the
-reference's under the native and the NumPy builder alike. The TPU's
-nine-per-row leaf matrix and 1-D SMEM node arrays are not carried over:
+primitives, so its DFS order and its tie order are the reference's under
+the native and the NumPy builder alike. The TPU's nine-per-row leaf
+matrix and 1-D SMEM node arrays are not carried over:
 
-  nodes    [NN, 8] float32: the box (lo xyz, hi xyz), then two int32 as
-           float bits: a leaf's first slot << LEAF_SHIFT | its count (0 on
-           an interior node) and the node's skip link;
+  nodes    [n_pairs, 16] float32, the child-pair table of that tree
+           (accel/treelet.py:_pair_table, boxes unpadded): per interior
+           node the left and the right child's box (lo xyz, hi xyz), then
+           int32 bits (left ref, left count, right ref, right count); a
+           leaf child is (first slot, count 1-9), an interior one (its
+           pair index, 0). Pair 0 holds the root beside a NaN box. The
+           left child of interior node i is i + 1, the right one
+           skip[i + 1], so a child's pair index is above its parent's.
   fields   [P, FIELD_STRIDE] float32: each primitive's slot columns in
            leaf order, padded to whole float4s;
   slot_gid [P] int32: leaf-order slot -> global prim id (the slot
            columns' gid column).
 
-csrc/trace_prim_bvh.cu walks one ray per thread, stackless, over the DFS
-order and skip links, descending on its own slab test; ``walk_reference``,
-the plain version, is the same per-lane walk with every lane stepping
-together while any is live, up to the same cap of num_nodes + 1 steps.
-CUDA tensors launch K6, CPU tensors take walk_reference; neither falls
-back to the other. The TPU kernel descends a node when any lane of its
-32 x 128-lane tile wants it, so a lane here visits a subset of the leaves
-it visited there: the two part only where a lane's own slab test culls
-the leaf that holds its hit by rounding.
+csrc/trace_prim_bvh.cu walks one ray a thread over the pair table in DFS
+order: both children of a pair tested at once, the left one visited first
+whenever the ray wants it, a wanted right one pushed with its t_enter on a
+stack in shared memory and tested again against the best t when popped.
+That is the decision the reference's skip-link walk makes when it reaches
+the node, so a lane visits the same leaves in the same order and keeps the
+same hit. ``walk_reference``, the plain version, is the same walk with
+every lane stepping together. A walk ends even on a corrupt table: at most
+n_pairs pair fetches (a sound tree fetches each pair once) and no push
+past stack_depth. CUDA tensors launch K6, CPU tensors take
+walk_reference; neither falls back to the other. The TPU kernel descends a
+node when any lane of its 32 x 128-lane tile wants it, so a lane here
+visits a subset of the leaves it visited there: the two part only where a
+lane's own slab test culls the leaf that holds its hit by rounding.
 """
 
 from __future__ import annotations
@@ -35,12 +47,12 @@ import torch
 from .. import kernels
 from ..geometry import ray as ray_mod
 from . import bvh as bvh_mod
+from . import treelet
 
 T_MIN = ray_mod.T_MIN
 BIG = 3.0e38
 INF = float("inf")
 TRIS_PER_LEAF = 9
-LEAF_SHIFT = 4
 # Primitive families (slot layout: 12 floats + gid):
 #   TRI:    p0(3) p1(3) p2(3) plane-normal(3)
 #   QUAD:   origin(3) edge_u(3) edge_v(3) normal(3)
@@ -88,41 +100,43 @@ def disk_slot_cols(center, normal, radial, gid):
 
 
 def pack_mesh(tree: bvh_mod.FlatBVH, slot_cols, kind):
-    """(nodes [NN, 8], fields [P, stride], slot_gid [P]) as NumPy arrays.
-    slot_cols: [P, 13] in the primitives' original order, the gid column
-    last. Every leaf must hold at most TRIS_PER_LEAF primitives."""
+    """(pairs [n_pairs, 16], stack depth, fields [P, stride], slot_gid [P])
+    as NumPy arrays and an int. slot_cols: [P, 13] in the primitives'
+    original order, the gid column last. Every leaf must hold at most
+    TRIS_PER_LEAF primitives."""
     cols = np.asarray(slot_cols, np.float32)[tree.prim_order]
-    leaf = tree.is_leaf > 0
-    if (tree.count[leaf] > TRIS_PER_LEAF).any():
+    if (tree.count[tree.is_leaf > 0] > TRIS_PER_LEAF).any():
         raise ValueError(f"rebuild the BVH with max_leaf <= {TRIS_PER_LEAF}")
-    nn = tree.bbox_min.shape[0]
-    nodes = np.zeros((nn, 8), np.float32)
-    nodes[:, 0:3] = tree.bbox_min
-    nodes[:, 3:6] = tree.bbox_max
-    meta = nodes[:, 6:8].view(np.int32)
-    meta[:, 0] = np.where(leaf, (tree.first << LEAF_SHIFT) | tree.count, 0)
-    meta[:, 1] = tree.skip
+    pairs, depth = treelet._pair_table(tree, np.float32(0.0))
     nf = N_FIELDS[kind]
     fields = np.zeros((cols.shape[0], FIELD_STRIDE[kind]), np.float32)
     fields[:, :nf] = cols[:, :nf]
-    return nodes, fields, cols[:, 12].astype(np.int32)
+    return pairs, depth, fields, cols[:, 12].astype(np.int32)
 
 
 class PrimBVHTracer:
-    """Closest-hit / any-hit over a single-type primitive BVH."""
+    """Closest-hit / any-hit over a single-type primitive BVH. The tables
+    go to `device`, the card unless the caller asks for the CPU; asking
+    for the card without one raises."""
 
     def __init__(self, kind, slot_cols, bbox_lo, bbox_hi,
-                 max_leaf=TRIS_PER_LEAF, device=None):
+                 max_leaf=TRIS_PER_LEAF, device="cuda"):
         if max_leaf > TRIS_PER_LEAF:
             raise ValueError(f"max_leaf must be at most {TRIS_PER_LEAF}")
+        if (torch.device(device).type == "cuda"
+                and not torch.cuda.is_available()):
+            raise RuntimeError(f"{type(self).__name__}: no CUDA device; pass "
+                               "device='cpu' to trace on the CPU")
         self.kind = kind
         self.bvh = bvh_mod.build_bvh(np.asarray(bbox_lo, np.float32),
                                      np.asarray(bbox_hi, np.float32),
                                      max_leaf=max_leaf)
-        nodes, fields, slot_gid = pack_mesh(self.bvh, slot_cols, kind)
-        self.num_nodes = nodes.shape[0]
+        pairs, self.stack_depth, fields, slot_gid = pack_mesh(
+            self.bvh, slot_cols, kind)
+        self.num_nodes = self.bvh.bbox_min.shape[0]
+        self.n_pairs = pairs.shape[0]
         self.n_prims = fields.shape[0]
-        self.nodes = torch.from_numpy(nodes).to(device)
+        self.nodes = torch.from_numpy(pairs).to(device)
         self.fields = torch.from_numpy(fields).to(device)
         self.slot_gid = torch.from_numpy(slot_gid).to(device)
 
@@ -132,13 +146,10 @@ class PrimBVHTracer:
         by (direction octant, origin cell) before the walk, as the TPU
         tracer does for its packets; a per-lane walk gives the same answer
         either way, and the sort keeps a warp's walks alike."""
-        order = None
-        if sort_rays:
-            order = _octant_cell_order(rays)
-            rays = ray_mod.RayBatch(origin=rays.origin[order],
-                                    dir=rays.dir[order],
-                                    t_max=rays.t_max[order])
         planes = ray_mod.to_planes(rays)
+        order = _octant_cell_order(rays) if sort_rays else None
+        if order is not None:
+            planes = planes[:, order]
         kind = planes.device.type
         if kind == "cpu":
             t, idx = walk_reference(self, planes, any_hit)
@@ -147,9 +158,8 @@ class PrimBVHTracer:
         else:
             raise ValueError(f"no trace backend for device {planes.device}")
         if order is not None:
-            inv = torch.empty_like(order)
-            inv[order] = torch.arange(order.shape[0], device=order.device)
-            t, idx = t[inv], idx[inv]
+            t = torch.empty_like(t).index_copy_(0, order, t)
+            idx = torch.empty_like(idx).index_copy_(0, order, idx)
         return t, idx
 
 
@@ -157,7 +167,7 @@ class MeshBVHTracer(PrimBVHTracer):
     """Triangle-BVH tracer (mesh_pallas.MeshBVHTracer)."""
 
     def __init__(self, p0, p1, p2, global_base: int, max_leaf=TRIS_PER_LEAF,
-                 device=None):
+                 device="cuda"):
         p0 = np.asarray(p0, np.float32)
         p1 = np.asarray(p1, np.float32)
         p2 = np.asarray(p2, np.float32)
@@ -178,7 +188,8 @@ def _octant_cell_order(rays):
     span = torch.clamp_min(o.max(dim=0).values - lo, 1e-6)
     cell = torch.clamp(((o - lo) / span * 7).to(torch.int64), 0, 7)
     key = (octant << 9) | (cell[:, 0] << 6) | (cell[:, 1] << 3) | cell[:, 2]
-    return torch.argsort(key, stable=True)
+    # 12-bit keys: a 16-bit sort gives the same order in fewer passes.
+    return torch.argsort(key.to(torch.int16), stable=True)
 
 
 # ------------------------------ plain version ------------------------------
@@ -273,69 +284,74 @@ def prim_t(kind, f, rox, roy, roz, rdx, rdy, rdz, t_max):
     return torch.where(ok, t, BIG)
 
 
+def _slab(box, o, inv, limit):
+    """K6's slab test of boxes box[m] (lo xyz, hi xyz) for lanes m:
+    (wanted [m], t_enter [m]). NaN-propagating min / max, as the kernel's
+    (the NaN box beside the root is never wanted)."""
+    tx0 = (box[:, 0] - o[0]) * inv[0]
+    tx1 = (box[:, 3] - o[0]) * inv[0]
+    ty0 = (box[:, 1] - o[1]) * inv[1]
+    ty1 = (box[:, 4] - o[1]) * inv[1]
+    tz0 = (box[:, 2] - o[2]) * inv[2]
+    tz1 = (box[:, 5] - o[2]) * inv[2]
+    t_enter = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                          torch.minimum(ty0, ty1)),
+                            torch.minimum(tz0, tz1))
+    t_exit = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                         torch.maximum(ty0, ty1)),
+                           torch.maximum(tz0, tz1))
+    wanted = (t_enter <= t_exit) & (t_exit >= T_MIN) & (t_enter < limit)
+    return wanted, t_enter
+
+
 def walk_reference(tracer: PrimBVHTracer, planes, any_hit: bool = False,
                    work=None):
     """Plain version of K6 on SoA ray planes [7, N]: the kernel's per-lane
-    stackless walk, every live lane stepping together, up to num_nodes + 1
-    steps. A leaf's primitives are tested at once: the first of them with
-    the least t replaces the best hit when strictly closer, which is the
-    kernel's in-order `t < t_best` update. (t [N], global id [N] int32).
-    `work` (a dict), when given, gains the node and primitive tests the
-    walk made ("node_tests", "prim_tests"), the work K6 does for these
+    walk over the pair table, every live lane taking one step (a pair or a
+    leaf) together. At a pair both children are tested; the left one is
+    taken when wanted, a wanted right one pushed with its t_enter (none
+    past stack_depth); a lane with neither, or done with a leaf, pops
+    until an entry's t_enter is below its best t. A lane stops after
+    n_pairs pair fetches, or at a pair index outside the table. A leaf's
+    primitives are tested at once: the first of them with the least t
+    replaces the best hit when strictly closer, which is the kernel's
+    in-order `t < t_best` update. (t [N], global id [N] int32). `work` (a
+    dict), when given, gains the box and primitive tests the walk made
+    ("node_tests", two a pair; "prim_tests"), the work K6 does for these
     rays (an any-hit walk that stops inside a leaf is counted whole)."""
     dev = planes.device
     n = planes.shape[1]
-    nodes = tracer.nodes.to(dev)
-    boxes = nodes[:, :6]
-    meta = nodes[:, 6:8].contiguous().view(torch.int32).to(torch.int64)
+    pairs = tracer.nodes.to(dev)
+    refs = pairs[:, 12:16].contiguous().view(torch.int32).to(torch.int64)
     fields = tracer.fields.to(dev)
     slot_gid = tracer.slot_gid.to(dev)
-    num_nodes = tracer.num_nodes
+    n_pairs, depth = tracer.n_pairs, tracer.stack_depth
     o = planes[0:3]
     d = planes[3:6]
     t_max = planes[6]
     inv = 1.0 / torch.where(d == 0.0, 1e-30, d)
     t_best = torch.full((n,), BIG, device=dev)
     g_best = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    # The node in hand: a pair index (cnt 0) or a leaf (first slot, cnt).
+    ref = torch.zeros(n, dtype=torch.int64, device=dev)
+    cnt = torch.zeros(n, dtype=torch.int64, device=dev)
+    fetches = torch.zeros(n, dtype=torch.int64, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    stack_ref = torch.zeros(n, depth, dtype=torch.int32, device=dev)
+    stack_cnt = torch.zeros(n, depth, dtype=torch.int32, device=dev)
+    stack_t = torch.zeros(n, depth, device=dev)
     lanes = torch.nonzero(t_max > 0.0).squeeze(1)
     ks = torch.arange(TRIS_PER_LEAF, device=dev)
-    for _ in range(num_nodes + 1):
-        lanes = lanes[node[lanes] < num_nodes]
-        if any_hit:
-            lanes = lanes[g_best[lanes] < 0]
-        if lanes.numel() == 0:
-            break
-        nd = node[lanes]
-        box = boxes[nd]
-        ro, ri = o[:, lanes], inv[:, lanes]
-        tx0 = (box[:, 0] - ro[0]) * ri[0]
-        tx1 = (box[:, 3] - ro[0]) * ri[0]
-        ty0 = (box[:, 1] - ro[1]) * ri[1]
-        ty1 = (box[:, 4] - ro[1]) * ri[1]
-        tz0 = (box[:, 2] - ro[2]) * ri[2]
-        tz1 = (box[:, 5] - ro[2]) * ri[2]
-        t_enter = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
-                                              torch.minimum(ty0, ty1)),
-                                torch.minimum(tz0, tz1))
-        t_exit = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
-                                             torch.maximum(ty0, ty1)),
-                               torch.maximum(tz0, tz1))
-        tm = t_max[lanes]
-        limit = torch.minimum(t_best[lanes], tm)
-        if work is not None:
-            work["node_tests"] = work.get("node_tests", 0) + lanes.numel()
-        wanted = (t_enter <= t_exit) & (t_exit >= T_MIN) & (t_enter < limit)
-        count = meta[nd, 0] & ((1 << LEAF_SHIFT) - 1)
-        leaf = wanted & (count > 0)
+    node_tests = prim_tests = 0
+    while lanes.numel():
+        leaf = cnt[lanes] > 0
+        done = torch.zeros_like(leaf)
+        popping = torch.zeros_like(leaf)
         if bool(leaf.any()):
             ln = lanes[leaf]
-            m = meta[nd[leaf], 0]
-            first, cnt = m >> LEAF_SHIFT, m & ((1 << LEAF_SHIFT) - 1)
-            valid = ks[None, :] < cnt[:, None]
-            if work is not None:
-                work["prim_tests"] = (work.get("prim_tests", 0)
-                                      + int(cnt.sum()))
+            first, c = ref[ln], cnt[ln]
+            valid = ks[None, :] < c[:, None]
+            prim_tests += int(c.sum())
             slot = torch.where(valid, first[:, None] + ks[None, :],
                                first[:, None])
             row = fields[slot]
@@ -357,8 +373,55 @@ def walk_reference(tracer: PrimBVHTracer, planes, any_hit: bool = False,
             g_new = slot_gid[slot.gather(1, kk[:, None]).squeeze(1)]
             t_best[ln] = torch.where(take, t_new, tb)
             g_best[ln] = torch.where(take, g_new.to(torch.int64), g_best[ln])
-        skip = meta[nd, 1]
-        node[lanes] = torch.where(wanted & (count == 0), nd + 1, skip)
+            if any_hit:
+                done[leaf] = take
+                popping[leaf] = ~take
+            else:
+                popping[leaf] = True
+        pos = torch.nonzero(~leaf).squeeze(1)
+        if pos.numel():
+            lp = lanes[pos]
+            pr = ref[lp]
+            # The cap (a sound tree fetches each pair at most once) and a
+            # pair index outside the table end the walk.
+            stop = (fetches[lp] >= n_pairs) | (pr < 0) | (pr >= n_pairs)
+            done[pos[stop]] = True
+            pos, lp, pr = pos[~stop], lp[~stop], pr[~stop]
+            fetches[lp] += 1
+            node_tests += 2 * lp.numel()
+            box, rr = pairs[pr], refs[pr]
+            limit = torch.minimum(t_best[lp], t_max[lp])
+            wl, tl = _slab(box[:, 0:6], o[:, lp], inv[:, lp], limit)
+            wr, tr = _slab(box[:, 6:12], o[:, lp], inv[:, lp], limit)
+            push = wl & wr & (sp[lp] < depth)
+            pl, at = lp[push], sp[lp[push]]
+            stack_ref[pl, at] = rr[push, 2].to(torch.int32)
+            stack_cnt[pl, at] = rr[push, 3].to(torch.int32)
+            stack_t[pl, at] = tr[push]
+            sp[pl] += 1
+            ref[lp] = torch.where(wl, rr[:, 0], rr[:, 2])
+            cnt[lp] = torch.where(wl, rr[:, 1], rr[:, 3])
+            popping[pos[~(wl | wr)]] = True
+        # Pop until an entry's t_enter is below the best t: a pushed t_enter
+        # is below t_max, so this is the slab test's `t_enter < min(t_best,
+        # t_max)` at that node. An empty stack ends the walk.
+        pos = torch.nonzero(popping).squeeze(1)
+        while pos.numel():
+            pl = lanes[pos]
+            has = sp[pl] > 0
+            done[pos[~has]] = True
+            pos, pl = pos[has], pl[has]
+            sp[pl] -= 1
+            top = sp[pl]
+            found = stack_t[pl, top] < t_best[pl]
+            pf, tf = pl[found], top[found]
+            ref[pf] = stack_ref[pf, tf].to(torch.int64)
+            cnt[pf] = stack_cnt[pf, tf].to(torch.int64)
+            pos = pos[~found]
+        lanes = lanes[~done]
+    if work is not None:
+        work["node_tests"] = work.get("node_tests", 0) + node_tests
+        work["prim_tests"] = work.get("prim_tests", 0) + prim_tests
     hit = t_best < BIG
     return (torch.where(hit, t_best, INF),
             torch.where(hit, g_best, -1).to(torch.int32))
@@ -377,7 +440,7 @@ def trace_planes(tracer: PrimBVHTracer, planes, any_hit: bool = False):
         raise ValueError("planes must be contiguous CUDA float32 [7, N], got "
                          f"{planes.dtype} {tuple(planes.shape)} on "
                          f"{planes.device}")
-    shapes = {"nodes": (torch.float32, (tracer.num_nodes, 8)),
+    shapes = {"nodes": (torch.float32, (tracer.n_pairs, treelet.PAIR_COLS)),
               "fields": (torch.float32,
                          (tracer.n_prims, FIELD_STRIDE[tracer.kind])),
               "slot_gid": (torch.int32, (tracer.n_prims,))}
@@ -388,6 +451,10 @@ def trace_planes(tracer: PrimBVHTracer, planes, any_hit: bool = False):
             raise ValueError(f"the tracer's {name} must be contiguous {dtype} "
                              f"{shape} on {planes.device}, got {tab.dtype} "
                              f"{tuple(tab.shape)} on {tab.device}")
+    max_depth = kernels.lib().pbrs_prim_bvh_max_stack_depth()
+    if tracer.stack_depth > max_depth:
+        raise ValueError(f"a BVH of depth {tracer.stack_depth} overflows the "
+                         f"{max_depth} stack entries shared memory holds")
     n = planes.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=planes.device)
     ids = torch.empty(n, dtype=torch.int32, device=planes.device)
@@ -395,9 +462,30 @@ def trace_planes(tracer: PrimBVHTracer, planes, any_hit: bool = False):
         return t, ids
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     rc = kernels.lib().pbrs_trace_prim_bvh(
-        tracer.nodes.data_ptr(), tracer.num_nodes, tracer.fields.data_ptr(),
-        tracer.slot_gid.data_ptr(), tracer.kind, planes.data_ptr(), n,
-        t.data_ptr(), ids.data_ptr(), int(any_hit), stream)
+        tracer.nodes.data_ptr(), tracer.n_pairs, tracer.stack_depth,
+        tracer.fields.data_ptr(), tracer.slot_gid.data_ptr(), tracer.kind,
+        planes.data_ptr(), n, t.data_ptr(), ids.data_ptr(), int(any_hit),
+        stream)
     kernels.check(rc, "trace_prim_bvh")
     LAUNCHES += 1
     return t, ids
+
+
+# Fields of kernel_info, in the order pbrs_trace_prim_bvh_info fills them.
+KERNEL_INFO = ("registers", "local_bytes", "warps_per_sm", "threads",
+               "static_smem", "dynamic_smem")
+
+
+def kernel_info(kind, any_hit, stack_depth) -> dict:
+    """The K6 instance for (kind, any_hit) as built and as it fits an SM of
+    the current card at this stack depth: registers and local memory
+    (spill and stack) bytes a thread, resident warps an SM, threads a
+    block, static and dynamic shared bytes a block (KERNEL_INFO). CUDA
+    only."""
+    import ctypes
+
+    info = (ctypes.c_int * len(KERNEL_INFO))()
+    kernels.check(kernels.lib().pbrs_trace_prim_bvh_info(
+        kind, int(any_hit), stack_depth, ctypes.cast(info, ctypes.c_void_p)),
+        "trace_prim_bvh info")
+    return dict(zip(KERNEL_INFO, info))

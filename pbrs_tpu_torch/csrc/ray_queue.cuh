@@ -1,6 +1,6 @@
 // Live rays packed into full warps, for the trace kernels K1
-// (trace_flat.cu) and K5 (trace_bvh.cu); the fused bounces take
-// lanes_below from here (bounce_common.cuh).
+// (trace_flat.cu), K5 (trace_bvh.cu) and K6 (trace_prim_bvh.cu); the fused
+// bounces take lanes_below from here (bounce_common.cuh).
 //
 // A launch covers every lane of its ray planes, but after bounce 0 many
 // lanes are dead (t_max <= 0) and the live ones are scattered over nearly

@@ -56,13 +56,15 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _I, _I, _VP, _I, _VP, _I,
                         _VP, _VP, _VP, _VP],
     "pbrs_fused_wave_info": [_I, _I, _I, _VP],
-    "pbrs_trace_prim_bvh": [_VP, _I, _VP, _VP, _I, _VP, _I, _VP, _VP, _I,
-                            _VP],
+    "pbrs_trace_prim_bvh": [_VP, _I, _I, _VP, _VP, _I, _VP, _I, _VP, _VP,
+                            _I, _VP],
+    "pbrs_trace_prim_bvh_info": [_I, _I, _I, _VP],
     "pbrs_mm_probe": [_VP, _VP, _I, _I, _I, _VP, _VP],
     "pbrs_error_string": [_I],
     "pbrs_max_bank_rows": [],
     "pbrs_flat_max_bytes": [],
     "pbrs_bvh_max_stack_depth": [],
+    "pbrs_prim_bvh_max_stack_depth": [],
 }
 
 _lib = None

@@ -15,6 +15,15 @@ Q3: trace time of mesh_ball(levels=5) on 2^20 coherent camera rays and
     2^20 incoherent rays, through the port's BVH tracer (K5,
     accel/treelet.py) and through the primitive-BVH walk (K6,
     accel/mesh_bvh.py) beside it.
+K6: K6's device ms a launch on each of its 16 ray sets (``k6_sets``: four
+    tracers, coherent and incoherent rays, closest and any hit) and on
+    mesh_ball's incoherent rays with 3 of 4 lanes dead, K5's on
+    mesh_ball's closest hits, and the whole ``MeshBVHTracer.trace`` call
+    (sort, K6, un-permute) on mesh_ball's coherent rays. It calls only
+    what the tracers have offered since the kernel was first ported, so a
+    copy of this file runs in an older tree's package beside this one:
+
+        python -m pbrs_tpu_torch.tools.prof_rounds --only k6
 
 Q1 (gather rounds per 1024-lane row of the treelet kernel) has no
 counterpart: K5 walks one ray a thread and runs no gather rounds.
@@ -211,18 +220,148 @@ def q3(dev, seed=0):
     return rows
 
 
+# The random spheres and disks of the K6 sets.
+K6_RANDOM_PRIMS = 4096
+
+
+def pinhole_rays(lo, hi, n, dev):
+    """n coherent rays from a pinhole in front of the box [lo, hi], on a
+    square grid of directions over the box's front face."""
+    from ..geometry import ray as ray_mod
+
+    ctr, ext = (lo + hi) / 2, hi - lo
+    eye = ctr - np.array([0.0, 0.0, 2.0 * ext.max()])
+    side = int(np.sqrt(n))
+    u = (np.arange(n) % side + 0.5) / side - 0.5
+    v = (np.arange(n) // side + 0.5) / side - 0.5
+    d = np.stack([u * ext[0], v * ext[1], np.full(n, ctr[2] - eye[2])], 1)
+    o = np.broadcast_to(eye, (n, 3))
+    return ray_mod.make_rays(
+        torch.from_numpy(o.astype(np.float32)).to(dev),
+        torch.from_numpy(d.astype(np.float32)).to(dev))
+
+
+def k6_sets(dev, seed=0, n=N_RAYS):
+    """{label: (tracer, coherent rays, incoherent rays)} of K6:
+    mesh_ball(levels=5)'s 16384 triangles, everything's 2401 quads, and
+    K6_RANDOM_PRIMS random spheres and disks (from `seed`); n rays a
+    set."""
+    from ..accel import mesh_bvh as mb
+    from ..scene import presets
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    scene, (p0, p1, p2) = mesh_ball_tris(dev)
+    tracer = mb.MeshBVHTracer(p0, p1, p2, 0, device=dev)
+    out["mesh_ball triangles"] = (tracer,) + ray_sets(
+        scene, p0.min(0), p0.max(0), dev, seed, n)
+    scene = presets.everything().to(dev)
+    g = scene.geom
+    o, u, v = (x.cpu().numpy() for x in (g.quad_origin, g.quad_u, g.quad_v))
+    corners = np.stack([o, o + u, o + v, o + u + v])
+    gid = np.arange(o.shape[0]).astype(np.float32)
+    tracer = mb.PrimBVHTracer(mb.KIND_QUAD, mb.quad_slot_cols(o, u, v, gid),
+                              corners.min(0), corners.max(0), device=dev)
+    out["everything quads"] = (tracer,) + ray_sets(
+        scene, corners.min((0, 1)), corners.max((0, 1)), dev, seed, n)
+    k = K6_RANDOM_PRIMS
+    c = rng.uniform(-10, 10, (k, 3)).astype(np.float32)
+    gid = np.arange(k).astype(np.float32)
+    r = rng.uniform(0.05, 0.5, k).astype(np.float32)
+    nrm = rng.normal(size=(k, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    radial = np.cross(nrm, rng.normal(size=(k, 3))).astype(np.float32)
+    radial *= r[:, None] / np.linalg.norm(radial, axis=1, keepdims=True)
+    radial = radial.astype(np.float32)
+    for label, kind, cols in (
+            ("random spheres", mb.KIND_SPHERE, mb.sphere_slot_cols(c, r, gid)),
+            ("random disks", mb.KIND_DISK,
+             mb.disk_slot_cols(c, nrm, radial, gid))):
+        lo, hi = c - r[:, None], c + r[:, None]
+        tracer = mb.PrimBVHTracer(kind, cols, lo, hi, device=dev)
+        incoherent = ray_sets(scene, lo.min(0), hi.max(0), dev, seed, n)[1]
+        out[label] = (tracer, pinhole_rays(lo.min(0), hi.max(0), n, dev),
+                      incoherent)
+    return out
+
+
+def k6_launch_planes(tracer, rays):
+    """The planes K6 is launched on for these rays: in the tracer's
+    (direction octant, origin cell) lane order."""
+    from ..accel import mesh_bvh as mb
+    from ..geometry import ray as ray_mod
+
+    return ray_mod.to_planes(rays)[:, mb._octant_cell_order(rays)]
+
+
+def q6(dev, seed=0, iters=10):
+    """K6's device ms a launch on each of the 16 sets of k6_sets; K5's on
+    mesh_ball's closest hits (the same sorted planes); the whole
+    MeshBVHTracer.trace call on mesh_ball's coherent rays (device ms, and
+    host ms to a synchronize)."""
+    import time
+
+    from ..accel import mesh_bvh as mb
+    from ..accel import treelet
+
+    sets = k6_sets(dev, seed)
+    rows = []
+    for label, (tracer, coherent, incoherent) in sets.items():
+        for rays_label, rays in (("coherent", coherent),
+                                 ("incoherent", incoherent)):
+            planes = k6_launch_planes(tracer, rays)
+            for any_hit in (False, True):
+                rows.append({"set": label, "rays": rays_label,
+                             "any_hit": any_hit, "ms": cuda_ms(
+                                 lambda: mb.trace_planes(tracer, planes,
+                                                         any_hit), iters)})
+    tracer, coherent, incoherent = sets["mesh_ball triangles"]
+    # Beside the 16 sets: mesh_ball's incoherent rays with 3 of 4 lanes
+    # dead (t_max 0), as a sparse launch.
+    planes = k6_launch_planes(tracer, incoherent).clone()
+    keep = torch.from_numpy(np.random.default_rng(seed).random(
+        planes.shape[1]) < 0.25).to(dev)
+    planes[6] = torch.where(keep, planes[6], 0.0)
+    sparse = [{"set": "mesh_ball triangles", "rays": "incoherent, 1 in 4 "
+               "live", "any_hit": any_hit, "ms": cuda_ms(
+                   lambda: mb.trace_planes(tracer, planes, any_hit), iters)}
+              for any_hit in (False, True)]
+    _, (p0, p1, p2) = mesh_ball_tris(dev)
+    fam = treelet.tri_tracer(p0, p1, p2, 0, device=dev)
+    k5 = {}
+    for rays_label, rays in (("coherent", coherent),
+                             ("incoherent", incoherent)):
+        planes = k6_launch_planes(tracer, rays)
+        k5[rays_label] = cuda_ms(lambda: treelet.trace_planes(fam, planes),
+                                 iters)
+    call_ms = cuda_ms(lambda: tracer.trace(coherent), iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        tracer.trace(coherent)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / iters * 1e3
+    return {"k6": rows, "k6_sparse": sparse, "k5_mesh_ball_closest_ms": k5,
+            "trace_call_ms": call_ms, "trace_call_wall_ms": wall_ms,
+            "k6_mean_ms": sum(r["ms"] for r in rows) / len(rows)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="pbrs_tpu_torch.tools.prof_rounds",
                                  description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("q2", "q3", "k6"), nargs="+",
+                    default=("q2", "q3"), help="the questions to ask "
+                    "(default: q2 q3)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("prof_rounds: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     card = torch.cuda.get_device_name(0)
-    print(json.dumps({"q2": q2(dev, args.seed), "device": card}))
-    print(json.dumps({"q3": q3(dev, args.seed), "device": card}))
+    for name, fn in (("q2", q2), ("q3", q3), ("k6", q6)):
+        if name in args.only:
+            print(json.dumps({name: fn(dev, args.seed), "device": card}))
     return 0
 
 
