@@ -26,7 +26,14 @@ cornell_direct_256_16spp) and both visualizers. The fused bounces K2 and
 K3 are also replayed on every launch of one main-path sample (phases 3, 7,
 19, 20): each bit-equal to its plain version, its device time by bounce
 and a sample's, its bound, and the sample again with each piece of the
-kernels' design changed alone or built otherwise. Every
+kernels' design changed alone or built otherwise. Then the Fourier BSDF
+and compaction (phases 29-30): fourier_plastic 800x608, depth 5, through
+the wave route with the Fourier override (K4 + K1), the general path and
+the folded general path masked and compacted, the wave route against the
+general path per lane, K4 and K1 bit-equal on its launches; compacted
+against masked per lane on fourier_plastic, mesh_ball 800x608 (folded
+general) and everything (wave), with K1 / K4 / K5 timed at each bounce's
+lane count and held bit-equal on the compacted launches. Every
 phase prints one line or more; a failing phase raises, so the script
 exits non-zero.
 There is no CPU path: without a CUDA device the script fails. The line
@@ -1123,12 +1130,13 @@ def mesh_scene(name):
     return presets.everything()
 
 
-def main_path_launches(dev, scene, depth, rng="pcg", nee_mode="twoarm"):
+def main_path_launches(dev, scene, depth, rng="pcg", nee_mode="twoarm",
+                       route="auto", compact=False):
     """Every K1, K4 and K5 launch of sample 0 of a scene's main path (route
-    auto, at full width, sampler `rng`, NEE `nee_mode`), kept with its
-    inputs: {"k1": [(packed bank, planes, any_hit)], "k5": [(family
-    tracer, planes, any_hit, t_in, id_in)], "k4": [(tables, fin, iin,
-    keywords)]}."""
+    `route`, at full width, sampler `rng`, NEE `nee_mode`, compacted to the
+    measured schedule with `compact`), kept with its inputs: {"k1":
+    [(packed bank, planes, any_hit)], "k5": [(family tracer, planes,
+    any_hit, t_in, id_in)], "k4": [(tables, fin, iin, keywords)]}."""
     from pbrs_tpu_torch import render
     from pbrs_tpu_torch.accel import fused_wave as fw
     from pbrs_tpu_torch.accel import trace_kernel as tk
@@ -1154,7 +1162,8 @@ def main_path_launches(dev, scene, depth, rng="pcg", nee_mode="twoarm"):
     n = scene.camera.width * scene.camera.height
     pix = torch.arange(n, dtype=torch.int32, device=dev)
     _, step = render.make_integrator(scene, sampler_of(rng), depth, MSAA,
-                                     "auto", nee_mode=nee_mode)
+                                     route, nee_mode=nee_mode,
+                                     compact_pilot=pix if compact else None)
     tk.trace_planes, tl.trace_planes, fw.shade = (record_k1, record_k5,
                                                    record_k4)
     try:
@@ -2713,6 +2722,257 @@ def phase_accuracy(dev, smi):
         raise AssertionError(f"MSE {mse[3]} is not below {bar}")
 
 
+# ------------- the Fourier BSDF and compaction (phases 29-30) ---------------
+
+# benchmarks.json's checksums of the same configs (the JAX package's own
+# sample ids and lane order): printed beside the port's, a cross-check only.
+BENCH_CHECKSUM = {"fourier_plastic": 1192460.9, "mesh_ball": 1759034.8,
+                  "everything": 4219447.5}
+FOURIER_DEPTH = 5  # benchmarks.json fourier_plastic_800x600
+
+
+def bench_scene(name):
+    """A scene at its benchmarks.json size: fourier_plastic and
+    mesh_ball(levels=5) at 800x608, everything at 800x800."""
+    from pbrs_tpu_torch import cli
+
+    if name == "fourier_plastic":
+        return preset_at(name, 800, 608)
+    if name == "mesh_ball":
+        return cli.with_resolution(mesh_scene(name), 800, 608)
+    return mesh_scene(name)
+
+
+def route_figures(phase, label, scene, depth, smi, route="auto",
+                  nee_mode="twoarm", compact=False, want=()):
+    """One route of a scene at full width: bench.py's timing loop
+    (run_main_path, one rep of SAMPLES sample indices) with every launch
+    count set to 0 just before and read just after, then the busy share of
+    a one-sample torch.profiler window
+    (profiling.profile_route) and, compacted, the schedule. Fails unless
+    each kernel in `want` launched and the checksum is finite and lit."""
+    from pbrs_tpu_torch import profiling
+
+    n = scene.camera.width * scene.camera.height
+    pix = torch.arange(n, dtype=torch.int32, device=scene.device)
+    mods = launch_counts()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    name, mrays, wall, checksum, segs = run_main_path(
+        scene, route, pix, depth, 1, "pcg", MSAA, nee_mode=nee_mode,
+        compact_pilot=pix if compact else None)
+    launches = {k: m.LAUNCHES for k, m in mods.items() if m.LAUNCHES}
+    prof = profiling.profile_route(scene, route, depth, MSAA, samples=1,
+                                   warmup=1, nee_mode=nee_mode,
+                                   compact=compact)
+    w, h = scene.camera.width, scene.camera.height
+    print(f"phase {phase} {label} {w}x{h} depth {depth} msaa {MSAA} "
+          f"({route}, {nee_mode}{', compact' if compact else ''}) -> {name}: "
+          f"median {mrays:.3f} Mrays/s, {wall * 1e3:.2f} ms/sample, "
+          f"{wall * MSAA * MSAA:.4f} s to 4 spp; busy share "
+          f"{prof['busy_share']:.3f} ({prof['device_busy_ms_per_sample']:.2f}"
+          f" of {prof['wall_ms_per_sample']:.2f} ms a sample); schedule "
+          f"{prof['schedule']}; {segs} traced segments a sample; launches "
+          f"{launches}; checksum {checksum:.6e} (benchmarks.json "
+          f"{BENCH_CHECKSUM.get(label)}, a cross-check only) [{smi}]")
+    missing = [k for k in want if not launches.get(k)]
+    if missing or not np.isfinite(checksum) or checksum <= 0:
+        raise AssertionError(f"{label} ({route}, {nee_mode}): kernels "
+                             f"{missing} not launched or an unlit image")
+    if compact and (prof["schedule"] is None or not name.endswith(
+            "_compact")):
+        raise AssertionError(f"{label}: the compacted route did not compact")
+    return {"name": name, "launches": launches, "ms": wall * 1e3,
+            "schedule": prof["schedule"], "checksum": checksum}
+
+
+def sample0(scene, depth, route="auto", nee_mode="twoarm", compact=False):
+    """(name, radiance, traced segments, schedule, compacted launches) of
+    sample 0 through make_integrator."""
+    from pbrs_tpu_torch import render
+
+    n = scene.camera.width * scene.camera.height
+    pix = torch.arange(n, dtype=torch.int32, device=scene.device)
+    name, fn = render.make_integrator(scene, sampler_of("pcg"), depth, MSAA,
+                                      route, nee_mode=nee_mode,
+                                      compact_pilot=pix if compact else None)
+    rad, cnt = fn(pix, 0)
+    return name, rad, int(cnt), getattr(fn, "schedule", None), getattr(
+        fn, "compacted", 0)
+
+
+def fourier_vs_general(phase, label, scene, depth):
+    """The wave route with the Fourier override (route auto) against the
+    general path per lane, sample 0, at full width: at most FUSED_SHARE of
+    the lanes outside atol K4_ATOL, rtol K4_RTOL and FUSED_LOOSE_SHARE
+    outside rtol 1e-2 (phase 18's caps), the checksums within
+    GOLDEN_REL_TOL."""
+    name, rad_w, cnt_w, _, _ = sample0(scene, depth)
+    _, rad_g, cnt_g, _, _ = sample0(scene, depth, "general")
+    n = rad_w.shape[0]
+
+    def outside(rtol):
+        return int((~torch.isclose(rad_w, rad_g, atol=K4_ATOL, rtol=rtol)
+                    .all(1)).sum())
+
+    bad, loose = outside(K4_RTOL), outside(1e-2)
+    s_w, s_g = float(rad_w.sum()), float(rad_g.sum())
+    print(f"phase {phase} {name} vs general, {label} ({n} lanes, depth "
+          f"{depth}, sample 0): lanes outside atol {K4_ATOL} rtol {K4_RTOL}: "
+          f"{bad}, rtol 1e-2: {loose}; max |d| "
+          f"{float((rad_w - rad_g).abs().max()):.3g}; checksum {s_w:.6e} vs "
+          f"{s_g:.6e}; rays {cnt_w} vs {cnt_g}")
+    if (name != "fused_wave" or bad > FUSED_SHARE * n
+            or loose > FUSED_LOOSE_SHARE * n or not np.isfinite(s_w)
+            or abs(s_w - s_g) > GOLDEN_REL_TOL * abs(s_g)):
+        raise AssertionError(f"{label}: the Fourier override parts from the "
+                             "general path")
+
+
+def compacted_vs_masked(phase, label, scene, depth, route, nee_mode):
+    """A route compacted to its measured schedule against the same route
+    masked, per lane, sample 0, at full width: no lane outside atol ATOL,
+    rtol RTOL, equal traced segments. A launch that does not tile into
+    8-lane blocks takes the masked loop, and the line says so."""
+    from pbrs_tpu_torch.integrators import wavefront
+
+    name_m, rad_m, cnt_m, _, _ = sample0(scene, depth, route, nee_mode)
+    name_c, rad_c, cnt_c, sched, k = sample0(scene, depth, route, nee_mode,
+                                             compact=True)
+    n = rad_m.shape[0]
+    bad = int((~torch.isclose(rad_c, rad_m, atol=ATOL, rtol=RTOL).all(1))
+              .sum())
+    bits = int((rad_c.view(torch.int32) != rad_m.view(torch.int32)).any(1)
+               .sum())
+    tiles = n % wavefront.COMPACT_BLOCK == 0
+    print(f"phase {phase} {label} ({route}, {nee_mode}) {name_c} vs "
+          f"{name_m}, sample 0, {n} lanes: schedule {sched}"
+          + ("" if tiles else " (the batch does not tile into 8-lane "
+             "blocks: the masked loop ran)")
+          + f"; lanes outside atol {ATOL} rtol {RTOL}: {bad}, not "
+          f"bit-equal {bits}; max |d| {float((rad_c - rad_m).abs().max()):.3g}"
+          f"; traced segments {cnt_c} vs {cnt_m}")
+    if bad or cnt_c != cnt_m or sched is None or k != int(tiles):
+        raise AssertionError(f"{label}: compacted and masked {route} "
+                             "disagree")
+
+
+def replay_launches(phase, label, seen, check):
+    """Every K4, K1 and K5 launch that main_path_launches recorded, timed
+    at its lane count (CUDA events); with `check`, each also held against
+    its plain version (K4 on all 30 planes, K1 closest and any hit, K5
+    seeded with the running hit it was handed): every lane bit-equal."""
+    from pbrs_tpu_torch.accel import fused_wave as fw
+    from pbrs_tpu_torch.accel import trace_kernel as tk
+
+    cnt = None
+    for i, (tab, fin, iin, kw) in enumerate(seen["k4"]):
+        cnt = torch.zeros(1, dtype=torch.int64, device=fin.device)
+        ms = cuda_ms(lambda: fw.shade(tab, fin, iin, cnt, **kw), 5)
+        said = ""
+        if check:
+            got = k4_compare(tab, fin, iin, kw)
+            said = (f"; outside atol {K4_ATOL} rtol {K4_RTOL}: "
+                    f"{got['outside']}, not bit-equal {got['not_bit_equal']},"
+                    f" alive/spec differ {got['alive']}, shadow rays kernel "
+                    f"{got['rays_k']} plain {got['rays_p']}")
+            if (got["outside"] or got["not_bit_equal"] or got["alive"]
+                    or got["rays_k"] != got["rays_p"]):
+                raise AssertionError(f"{label}: K4 launch {i} disagrees")
+        print(f"phase {phase} {label} K4 launch {i} (bounce {kw['bounce']}):"
+              f" {fin.shape[1]} lanes, {int((iin[2] > 0).sum())} alive; "
+              f"{ms:.4f} ms{said}")
+    for i, (flat, planes, any_hit) in enumerate(seen["k1"]):
+        ms = cuda_ms(lambda: tk.trace_planes(flat, planes, any_hit), 5)
+        said = ""
+        if check:
+            bad, _, _ = k1_parity(flat, planes_rays(planes))
+            said = f"; lanes differing (closest and any hit) {bad}"
+            if any(bad.values()):
+                raise AssertionError(f"{label}: K1 launch {i} disagrees")
+        print(f"phase {phase} {label} K1 launch {i} "
+              f"({'any hit' if any_hit else 'closest'}): {planes.shape[1]} "
+              f"lanes, {int((planes[6] > 0).sum())} live; {ms:.4f} ms{said}")
+    for i, (fam, planes, any_hit, t_in, id_in) in enumerate(seen["k5"]):
+        ms = k5_ms(fam, planes, any_hit, t_in, id_in)
+        said = ""
+        if check:
+            bad, _, _, _ = bvh_compare(fam, planes_rays(planes), t_in, id_in)
+            said = f"; lanes differing {bad}"
+            if any(bad.values()):
+                raise AssertionError(f"{label}: K5 launch {i} disagrees")
+        print(f"phase {phase} {label} K5 launch {i} "
+              f"({'any hit' if any_hit else 'closest'}): {planes.shape[1]} "
+              f"lanes, {int((planes[6] > 0).sum())} live; {ms:.4f} ms{said}")
+
+
+def phase_fourier(dev, smi):
+    """Phase 29, the Fourier BSDF: fourier_plastic at 800x608
+    (benchmarks.json fourier_plastic_800x600), 4 spp, depth 5, through the
+    wave route with the Fourier override (route auto, two-arm), the
+    general path (two-arm) and the folded general path masked and
+    compacted; the wave route against the general path per lane; every K4
+    and K1 launch of the wave route's sample 0 (the override's occlusion
+    rays included) bit-equal to the plain versions. Returns the launches
+    of the four runs."""
+    scene = bench_scene("fourier_plastic").to(dev)
+    launches = {}
+    for route, nee_mode, compact, want in (
+            ("auto", "twoarm", False, ("fused_wave", "trace_flat")),
+            ("general", "twoarm", False, ("trace_flat",)),
+            ("general", "folded", False, ("trace_flat",)),
+            ("general", "folded", True, ("trace_flat",))):
+        row = route_figures(29, "fourier_plastic", scene, FOURIER_DEPTH, smi,
+                            route, nee_mode, compact, want)
+        if route == "auto" and row["name"] != "fused_wave":
+            raise AssertionError("fourier_plastic: route auto did not take "
+                                 f"the wave route: {row['name']}")
+        for k, v in row["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    fourier_vs_general(29, "fourier_plastic", scene, FOURIER_DEPTH)
+    replay_launches(29, "fourier_plastic wave",
+                    main_path_launches(dev, scene, FOURIER_DEPTH), True)
+    return launches
+
+
+def phase_compaction(dev, smi):
+    """Phase 30, compaction at the benchmarks.json sizes, on the routes the
+    JAX package tuned them to: fourier_plastic (the folded general path,
+    and the wave route under the Fourier override), mesh_ball(levels=5)
+    800x608 depth 6 (the folded general path) and everything 800x800
+    depth 5 (the wave path), compacted against masked per lane; masked and
+    compacted figures for mesh_ball and everything (phase 29 has
+    fourier_plastic's); every K4 / K1 / K5 launch of sample 0 timed at its
+    lane count, masked and compacted, the compacted ones of all three
+    held bit-equal to the plain versions. Returns the launches of the
+    timed runs."""
+    launches = {}
+    runs = (("fourier_plastic", FOURIER_DEPTH, "general", "folded", ()),
+            ("fourier_plastic", FOURIER_DEPTH, "auto", "twoarm", ()),
+            ("mesh_ball", MESH_DEPTH, "general", "folded",
+             ("trace_flat", "trace_bvh")),
+            ("everything", EVERY_DEPTH, "auto", "twoarm",
+             ("trace_flat", "trace_bvh", "fused_wave")))
+    for label, depth, route, nee_mode, want in runs:
+        scene = bench_scene(label).to(dev)
+        if want:
+            for compact in (False, True):
+                row = route_figures(30, label, scene, depth, smi, route,
+                                    nee_mode, compact, want)
+                for k, v in row["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        compacted_vs_masked(30, label, scene, depth, route, nee_mode)
+        for compact in (False, True):
+            seen = main_path_launches(dev, scene, depth, nee_mode=nee_mode,
+                                      route=route, compact=compact)
+            replay_launches(
+                30, f"{label} ({route}, {nee_mode}, "
+                f"{'compacted' if compact else 'masked'})", seen,
+                check=compact)
+        del scene
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, report):
     return {"name": name, "route": "cuda",
             "source": f"pbrs_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -2781,6 +3041,11 @@ def main():
     mm, mm_launches = run(phase_mm, dev, smi)
     run(phase_options, dev, smi)
     run(phase_accuracy, dev, smi)
+    fourier_launches = run(phase_fourier, dev, smi)
+    compact_launches = run(phase_compaction, dev, smi)
+    slice_launches = {k: fourier_launches.get(k, 0)
+                      + compact_launches.get(k, 0)
+                      for k in ("trace_flat", "trace_bvh", "fused_wave")}
     k2_src = "pbrs_tpu/accel/fused_kernel.py:329"
     k3_src = "pbrs_tpu/accel/fused_single_lobe.py:506"
     k4_src = "pbrs_tpu/accel/fused_wave.py:158"
@@ -2811,6 +3076,10 @@ def main():
         kernel_entry("mm_probe", "mm_probe.cu", "tools/_prof_rounds.py:72",
                      mm_launches, mm),
     ]
+    for entry in kernels:
+        if entry["name"] in slice_launches:
+            # Launches on the Fourier and compacted routes of phases 29-30.
+            entry["fourier_compact_launches"] = slice_launches[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

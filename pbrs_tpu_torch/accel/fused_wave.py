@@ -1,7 +1,8 @@
 """The shade-only bounce with the trace outside it (kernel K4). Mirrors
 pbrs_tpu/accel/fused_wave.py: ``scene_supports_wave`` /
 ``scene_supports_wave_folded``, ``_shade_kernel`` (two-arm or folded NEE,
-PCG or Sobol' draws) and ``FusedWaveIntegrator.render_samples``.
+PCG or Sobol' draws), ``FusedWaveIntegrator.render_samples`` (masked,
+or compacted to a shrink schedule) and the Fourier override.
 
 A bounce traces its closest hit through the scene's tracer (K1 / K5 /
 instance groups, accel/dispatch.py), evaluates the hit detail, the image /
@@ -29,8 +30,18 @@ direction and beta. (The TPU kernel passes lanes through only when its
 whole 64 x 128-lane block is dead and shades the dead lanes of a live
 block; the apply step reads nothing of a dead lane that differs.)
 
-Left out, each refused or declined and queued in ROADMAP.md:
-``render_samples_compacted`` and the Fourier override.
+Fourier lanes (a material with a FOURIER lobe) are shaded outside K4 by
+the general path's own functions on the same counter draws
+(``_fourier_override``): their NEE occlusion runs through the scene's
+tracer, their two shadow queries are disarmed, and their results are
+written over K4's output planes. K4 sees a FOURIER slot as active and
+matching no kind, so the other lanes of a launch keep their values.
+Two-arm only, as in the JAX package.
+
+Given a shrink schedule, ``render_samples`` runs each bounce on the lanes
+that ``integrators/wavefront.compact_step`` keeps, to a measured static
+schedule, and banks each lane's contributions onto its original row in
+the masked loop's order.
 """
 
 from __future__ import annotations
@@ -42,12 +53,16 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..bxdf import bsdf as bsdf_mod
 from ..bxdf import lobes as lb
 from ..core import sampler as smp
+from ..core import vecmath as vm
 from ..geometry import ray as ray_mod
+from ..integrators import nee
 from ..integrators import wavefront
 from ..lights import env_sampling as es
 from ..lights import lights as lt
+from ..materials import table as mat_mod
 from ..textures import textures as tex
 from . import dispatch as trace_dispatch
 from . import fused_kernel as fk
@@ -87,13 +102,17 @@ LAUNCHES = 0
 
 
 def scene_supports_wave(scene) -> bool:
-    """Eligibility: every lobe kind in the supported set (FOURIER, which
-    the JAX package shades outside the kernel, is not ported), isotropic
-    microfacet / FresnelBlend, banks within the kernel's bounds. Geometry,
-    instancing, textures and the environment are unrestricted."""
+    """Eligibility: every lobe kind in the supported set (FOURIER where
+    the scene has its table: those lanes are shaded outside the kernel),
+    isotropic microfacet / FresnelBlend, banks within the kernel's bounds.
+    Geometry, instancing, textures and the environment are
+    unrestricted."""
     mt = scene.materials
     km = _np(mt.kind)
-    if set(km.reshape(-1).tolist()) - _WAVE_KINDS:
+    kinds = set(km.reshape(-1).tolist())
+    if kinds - _WAVE_KINDS - {lb.FOURIER}:
+        return False
+    if lb.FOURIER in kinds and mt.fourier is None:
         return False
     alpha = _np(mt.alpha)
     for s in range(km.shape[1]):
@@ -105,8 +124,8 @@ def scene_supports_wave(scene) -> bool:
 
 
 def scene_supports_wave_folded(scene) -> bool:
-    """Folded eligibility: wave-eligible and no FOURIER lobe (the JAX
-    package's Fourier override is two-arm only)."""
+    """Folded eligibility: wave-eligible and no FOURIER lobe (the Fourier
+    override is two-arm only)."""
     return scene_supports_wave(scene) and lb.FOURIER not in set(
         _np(scene.materials.kind).reshape(-1).tolist())
 
@@ -641,6 +660,7 @@ class FusedWaveIntegrator:
         self.scene = scene
         self.folded = bool(folded)
         self.tables = WaveTables.from_scene(scene)
+        self.has_fourier = lb.FOURIER in self.tables.present_kinds
         self.intersect_fn, self.occlude_fn = trace_dispatch.make_trace_fns(
             scene, True, bvh_threshold)
 
@@ -652,14 +672,113 @@ class FusedWaveIntegrator:
             return es.eval_env_pdf(env, dirs)
         return lt.eval_env(env, dirs), None
 
+    def _shade_pass(self, sampler, rays, pix, samp, beta, alive, spec,
+                    bounce, rr_start, count):
+        """A bounce up to its apply step: the closest hit, the outside
+        evaluations, one K4 launch and the Fourier override. beta [3, N]
+        planes, pix / samp / alive / spec int32 [N]. Returns (hit, env
+        radiance, env pdf or None, fout, iout); K4 adds the shadow-ray
+        count to `count`."""
+        scene, tab = self.scene, self.tables
+        hit = self.intersect_fn(rays)
+        env_here, p_env = self._env(rays.dir)
+        planes = [rays.dir.T, hit.pos.T, hit.normal.T, hit.dpdu.T,
+                  env_here.T]
+        safe = torch.clamp_min(hit.mat_id, 0).to(torch.int64)
+        for s in tab.textured_slots:
+            planes.append(tex.eval_texture(
+                scene.textures, tab.tex_id[:, s][safe], hit.uv, hit.pos).T)
+        if tab.env_is:
+            u_light = sampler.u2(pix, samp, bounce, smp.DIM_LIGHT_UV)
+            e_dir, e_rad, e_pdf = es.sample_env(scene.env.dist, u_light)
+            planes += [e_dir.T, e_rad.T, e_pdf[None]]
+        fin = torch.cat(planes + [beta]).contiguous()
+        iin = torch.stack([hit.mat_id.to(torch.int32),
+                           hit.hit.to(torch.int32), alive, spec, pix,
+                           samp]).contiguous()
+        fout, iout = shade(tab, fin, iin, count, seed=sampler.seed,
+                           bounce=bounce, first=bounce == 0,
+                           rr_on=bounce > rr_start, rng=fk.rng_kind(sampler),
+                           folded=self.folded)
+        if self.has_fourier:
+            fout, iout = self._fourier_override(
+                sampler, hit, pix, samp, bounce, beta.T, alive > 0, rr_start,
+                fout, iout)
+        return hit, env_here, p_env, fout, iout
+
+    def _fourier_override(self, sampler, hit, pix, samp, bounce, beta3,
+                          alive, rr_start, fout, iout):
+        """Lanes whose material carries a FOURIER lobe, shaded outside K4 by
+        the general path's functions (bsdf.sample_bsdf,
+        nee.uniform_sample_one_light, whose occlusion traces through the
+        scene's tracer) on the same counter draws, and written over K4's
+        planes: radiance plus their NEE, both shadow queries disarmed
+        (t_max 0, coefficients 0), the continuation, beta after roulette,
+        alive and spec. Returns (fout, iout)."""
+        scene = self.scene
+        lobes, _ = mat_mod.shading_at(scene.materials, scene.textures,
+                                      hit.mat_id, hit.uv, hit.pos)
+        fmask = (lobes.kind == lb.FOURIER).any(dim=-1) & hit.hit
+        alive_hit = alive & hit.hit
+        gate = fmask & alive_hit
+        frame = bsdf_mod.make_frame(hit.normal, hit.dpdu)
+        u_bsdf = sampler.u2(pix, samp, bounce, smp.DIM_BSDF_UV)
+        f, wi, pdf, is_delta = bsdf_mod.sample_bsdf(lobes, frame, hit.wo,
+                                                    u_bsdf)
+        l_direct = torch.zeros_like(wi)
+        if scene.num_lights > 0:
+            l_direct = nee.uniform_sample_one_light(
+                scene, lobes, frame, hit.pos, hit.normal, hit.wo,
+                sampler.u1(pix, samp, bounce, smp.DIM_LIGHT_SELECT),
+                sampler.u2(pix, samp, bounce, smp.DIM_LIGHT_UV),
+                sampler.u2(pix, samp, bounce, smp.DIM_SCATTER_UV),
+                occlude_fn=self.occlude_fn, alive=gate)
+        cos_term = torch.abs(vm.dot(wi, frame.n))
+        step_ok = (pdf > 0.0) & ((f[..., 0] > 0.0) | (f[..., 1] > 0.0)
+                                 | (f[..., 2] > 0.0))
+        alive_f = alive_hit & step_ok
+        beta_f = torch.where(
+            alive_f[..., None],
+            beta3 * f * (cos_term * vm.weak_recip(pdf))[..., None], beta3)
+        if bounce > rr_start:
+            q = torch.clamp_min(1.0 - vm.luminance(beta_f), 0.05)
+            u_rr = sampler.u1(pix, samp, bounce, smp.DIM_RUSSIAN_ROULETTE)
+            alive_f = alive_f & ~(u_rr < q)
+            beta_f = beta_f * torch.where(
+                alive_f, 1.0 / torch.clamp_min(1.0 - q, 1e-6), 1.0)[..., None]
+        side = torch.where(vm.dot(wi, hit.normal) >= 0.0, 1.0, -1.0)
+        contrib = torch.where(gate[..., None], beta3 * l_direct, 0.0)
+        new = fout.clone()
+        new[0:3] = fout[0:3] + contrib.T
+        # Shadow queries disarmed: s1 t_max and c1, s2 t_max, c2, the env
+        # coefficient and the BSDF pdf.
+        for k in (6, 8, 9, 10, 14, 16, 17, 18, 19, 20, 21, 22):
+            new[k] = 0.0
+        new[23:26] = wi.T
+        new[26] = side
+        new[27:30] = beta_f.T
+        fout = torch.where(fmask, new, fout)
+        iout = torch.where(fmask, torch.stack([
+            alive_f.to(torch.int32), (alive_f & is_delta).to(torch.int32)]),
+            iout)
+        return fout, iout
+
     def render_samples(self, sampler, pixel_idx, sample_idx, max_depth=5,
-                       msaa=2, rr_start=3):
+                       msaa=2, rr_start=3, schedule=None):
         """(radiance [N,3], traced-ray count) for a (pixel, sample) batch:
         rays with a live extent at each closest hit, plus a shadow ray per
         lane alive after its hit for each shadow batch (2, or 1 folded)
-        when the scene has lights, summed on the device."""
-        rng = fk.rng_kind(sampler)
-        scene, tab = self.scene, self.tables
+        when the scene has lights, summed on the device.
+
+        schedule (per-bounce lane capacities, schedule[0] >= N; the batch
+        must tile into wavefront.COMPACT_BLOCK blocks) compacts the lanes
+        between bounces (``wavefront.compact_step``), so K4 and the
+        tracers launch on the reduced lane count. Each lane banks its
+        contributions onto its original row in the masked loop's order, so
+        with every block kept (p = 1) its radiance and the count are the
+        masked loop's."""
+        fk.rng_kind(sampler)  # a sampler K4 cannot draw raises here
+        scene = self.scene
         rays = wavefront.camera_rays(scene, sampler, pixel_idx, sample_idx,
                                      msaa)
         n = rays.n
@@ -673,60 +792,56 @@ class FusedWaveIntegrator:
         radiance = torch.zeros(n, 3, device=dev)
         count = torch.zeros(1, dtype=torch.int64, device=dev)
         pend = None
+        orig, bank = None, wavefront._add
         for bounce in range(max_depth):
+            if schedule is not None:
+                (rays, beta3, pix, samp, orig, spec_b, alive_b, pend,
+                 bank) = wavefront.compact_step(
+                    schedule, bounce, n, sampler, rays, beta.T, pix, samp,
+                    orig, spec > 0, alive > 0, pend, bank)
+                beta = beta3.T.contiguous()
+                alive, spec = alive_b.to(torch.int32), spec_b.to(torch.int32)
             count += (rays.t_max > 0.0).sum()
-            hit = self.intersect_fn(rays)
-            env_here, p_env = self._env(rays.dir)
-            planes = [rays.dir.T, hit.pos.T, hit.normal.T, hit.dpdu.T,
-                      env_here.T]
-            safe = torch.clamp_min(hit.mat_id, 0).to(torch.int64)
-            for s in tab.textured_slots:
-                planes.append(tex.eval_texture(
-                    scene.textures, tab.tex_id[:, s][safe], hit.uv,
-                    hit.pos).T)
-            if tab.env_is:
-                u_light = sampler.u2(pixel_idx, sample_idx, bounce,
-                                     smp.DIM_LIGHT_UV)
-                e_dir, e_rad, e_pdf = es.sample_env(scene.env.dist, u_light)
-                planes += [e_dir.T, e_rad.T, e_pdf[None]]
-            fin = torch.cat(planes + [beta]).contiguous()
-            iin = torch.stack([hit.mat_id.to(torch.int32),
-                               hit.hit.to(torch.int32), alive, spec, pix,
-                               samp]).contiguous()
-            fout, iout = shade(tab, fin, iin, count, seed=sampler.seed,
-                               bounce=bounce, first=bounce == 0,
-                               rr_on=bounce > rr_start, rng=rng,
-                               folded=self.folded)
+            hit, env_here, p_env, fout, iout = self._shade_pass(
+                sampler, rays, pix, samp, beta, alive, spec, bounce,
+                rr_start, count)
             t_next = torch.where(iout[0] > 0, INF, 0.0)
             if self.folded:
                 radiance, pend, t_next = self._apply_folded(
-                    radiance, hit, fout, env_here, p_env, pend, t_next)
+                    radiance, hit, fout, env_here, p_env, pend, t_next, bank)
             else:
-                radiance = self._apply(radiance, hit, fout)
-            rays = ray_mod.RayBatch(
-                origin=hit.pos + fout[26][:, None] * hit.normal * SPAWN_EPS,
-                dir=fout[23:26].T, t_max=t_next)
+                radiance = self._apply(radiance, hit, fout, bank)
+            rays = self._next_rays(hit, fout, t_next)
             beta = fout[27:30]
             alive, spec = iout[0], iout[1]
         if self.folded and pend is not None:
-            # One bounded closest hit resolves the last bounce's pending.
-            pend_valid = pend["is_env"] | (pend["t_light"] > 0.0)
-            e_tmax = torch.where(pend["is_env"], rays.t_max,
-                                 pend["t_light"] * (1.0 + 1e-3))
-            rays = rays.replace(t_max=torch.where(pend_valid, e_tmax, 0.0))
-            count += (rays.t_max > 0.0).sum()
-            hit = self.intersect_fn(rays)
-            env_here, p_env = self._env(rays.dir)
-            radiance = radiance + _pend_contrib(pend, hit, env_here, p_env)
+            radiance = self._epilogue(pend, rays, radiance, count, bank)
         return radiance, count[0]
+
+    def _next_rays(self, hit, fout, t_next):
+        return ray_mod.RayBatch(
+            origin=hit.pos + fout[26][:, None] * hit.normal * SPAWN_EPS,
+            dir=fout[23:26].T, t_max=t_next)
+
+    def _epilogue(self, pend, rays, radiance, count, bank):
+        """One bounded closest hit resolves the last bounce's pending."""
+        pend_valid = pend["is_env"] | (pend["t_light"] > 0.0)
+        e_tmax = torch.where(pend["is_env"], rays.t_max,
+                             pend["t_light"] * (1.0 + 1e-3))
+        rays = rays.replace(t_max=torch.where(pend_valid, e_tmax, 0.0))
+        count += (rays.t_max > 0.0).sum()
+        hit = self.intersect_fn(rays)
+        env_here, p_env = self._env(rays.dir)
+        return bank(radiance, _pend_contrib(pend, hit, env_here, p_env))
 
     def _shadow_origin(self, hit, side):
         return hit.pos + side[:, None] * hit.normal * SPAWN_EPS
 
-    def _apply(self, radiance, hit, fout):
+    def _apply(self, radiance, hit, fout, bank):
         """radiance + this bounce's: emission, c1 unless shadow 1 is
-        occluded, c2 + env coefficient x env radiance unless shadow 2 is;
-        both shadow batches go through one occlusion launch."""
+        occluded, c2 + env coefficient x env radiance unless shadow 2 is,
+        each added by `bank` in that order; both shadow batches go through
+        one occlusion launch."""
         scene = self.scene
         n = hit.pos.shape[0]
         d1, d2 = fout[3:6].T, fout[11:14].T
@@ -746,27 +861,31 @@ class FusedWaveIntegrator:
             ec = ec * torch.where(p_b > 0.0, w_e, 0.0)[:, None]
         else:
             env2 = lt.eval_env(scene.env, d2)
-        return (radiance + fout[0:3].T
-                + torch.where(occ1[:, None], 0.0, fout[8:11].T)
-                + torch.where(occ2[:, None], 0.0, fout[16:19].T + ec * env2))
+        radiance = bank(radiance, fout[0:3].T)
+        radiance = bank(radiance, torch.where(occ1[:, None], 0.0,
+                                              fout[8:11].T))
+        return bank(radiance, torch.where(occ2[:, None], 0.0,
+                                          fout[16:19].T + ec * env2))
 
     def _apply_folded(self, radiance, hit, fout, env_here, p_env, pend,
-                      t_next):
+                      t_next, bank):
         """The folded apply step: resolve the previous bounce's pending
         against this hit, add emission and c1 unless shadow 1 (one
-        occlusion launch) is occluded; return the radiance, this bounce's
-        pending (the area coefficient c2 with the light's distance in s2t,
-        or the env coefficient with the BSDF pdf in t_light under env-IS)
-        and the next rays' extents (a dead lane owing a pending keeps one
-        bounded resolution segment)."""
+        occlusion launch) is occluded, each by `bank`; return the radiance,
+        this bounce's pending (the area coefficient c2 with the light's
+        distance in s2t, or the env coefficient with the BSDF pdf in
+        t_light under env-IS) and the next rays' extents (a dead lane owing
+        a pending keeps one bounded resolution segment)."""
         if pend is not None:
-            radiance = radiance + _pend_contrib(pend, hit, env_here, p_env)
+            radiance = bank(radiance,
+                            _pend_contrib(pend, hit, env_here, p_env))
         t1 = fout[6]
         occ1 = self.occlude_fn(ray_mod.RayBatch(
             origin=self._shadow_origin(hit, fout[7]), dir=fout[3:6].T,
             t_max=t1)) & (t1 > 0.0)
-        radiance = (radiance + fout[0:3].T
-                    + torch.where(occ1[:, None], 0.0, fout[8:11].T))
+        radiance = bank(radiance, fout[0:3].T)
+        radiance = bank(radiance, torch.where(occ1[:, None], 0.0,
+                                              fout[8:11].T))
         t_light = fout[14]
         is_env = (fout[22] > 0.0 if self.tables.has_env
                   else torch.zeros_like(t_light, dtype=torch.bool))

@@ -1,7 +1,8 @@
 """BSDF lobe models with branchless kind dispatch. Mirrors
-pbrs_tpu/bxdf/lobes.py for the LAMBERT, OREN_NAYAR, MICROFACET,
-SPEC_MIRROR, SPEC_DIELECTRIC, SPEC_TRANSMIT and FRESNEL_BLEND kinds;
-FOURIER raises NotImplementedError until its slice is ported.
+pbrs_tpu/bxdf/lobes.py: the LAMBERT, OREN_NAYAR, MICROFACET, SPEC_MIRROR,
+SPEC_DIELECTRIC, SPEC_TRANSMIT, FRESNEL_BLEND and FOURIER kinds (a FOURIER
+lobe reads the scene's table, ``bxdf/fourier.py``, at the index stored in
+its alpha[..., 0]).
 
 A lobe is a row of SoA parameter tensors tagged with an integer kind;
 eval/pdf/sample compute every model the scene can produce and mask-select.
@@ -16,6 +17,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core import vecmath as vm
+from . import fourier as fb
 from . import fresnel as fr
 from . import microfacet as mf
 
@@ -30,8 +32,6 @@ FRESNEL_BLEND = 7
 FOURIER = 8
 
 INV_PI = 1.0 / math.pi
-PORTED_KINDS = (LAMBERT, OREN_NAYAR, MICROFACET, SPEC_MIRROR,
-                SPEC_DIELECTRIC, SPEC_TRANSMIT, FRESNEL_BLEND)
 FIELDS = ("kind", "albedo", "specular", "alpha", "distrib", "fr_kind", "eta",
           "eta_t", "k")
 
@@ -50,6 +50,7 @@ class Lobes:
     eta: torch.Tensor  # [..., L, 2] dielectric (front, back)
     eta_t: torch.Tensor  # [..., L, 3] conductor eta
     k: torch.Tensor  # [..., L, 3] conductor absorption
+    fourier: object = None  # scene-level FourierTable, if any
     present_kinds: tuple = (LAMBERT,)
 
     @property
@@ -58,14 +59,6 @@ class Lobes:
 
     def has(self, *kinds):
         return any(k in self.present_kinds for k in kinds)
-
-
-def check_ported(present_kinds):
-    missing = set(present_kinds) - set(PORTED_KINDS) - {NONE}
-    if missing:
-        raise NotImplementedError(
-            f"pbrs_tpu.bxdf.lobes kinds {sorted(missing)} (eval_lobe/"
-            "sample_lobe) are not ported to pbrs_tpu_torch yet")
 
 
 def slot(lobes: Lobes, l) -> Lobes:
@@ -83,7 +76,7 @@ def slot(lobes: Lobes, l) -> Lobes:
                                 )[:, 0]
             return a.gather(1, idx)[:, 0]
     return Lobes(*(pick(getattr(lobes, f)) for f in FIELDS),
-                 present_kinds=lobes.present_kinds)
+                 fourier=lobes.fourier, present_kinds=lobes.present_kinds)
 
 
 def num_active(lobes: Lobes):
@@ -93,6 +86,16 @@ def num_active(lobes: Lobes):
 def is_delta_kind(kind):
     return (kind == SPEC_MIRROR) | (kind == SPEC_DIELECTRIC) | (
         kind == SPEC_TRANSMIT)
+
+
+def _fourier_idx(lb: Lobes):
+    """Per-lane Fourier table index, stored in alpha[..., 0] by
+    ``MaterialBuilder.add_fourier`` (0 for a single-table scene)."""
+    return lb.alpha[..., 0].to(torch.int32)
+
+
+def _has_fourier(lb: Lobes):
+    return lb.has(FOURIER) and lb.fourier is not None
 
 
 def same_hemisphere(w0, w1):
@@ -196,7 +199,6 @@ def _fresnel_blend_eval(lb, wo, wi):
 def eval_lobe(lb: Lobes, wo, wi):
     """f(wo, wi) for one lobe slot; delta kinds evaluate to 0 and the
     reflection-only kinds are zero across the horizon."""
-    check_ported(lb.present_kinds)
     k = lb.kind
     out = torch.zeros_like(lb.albedo)
     same = same_hemisphere(wo, wi)[..., None]
@@ -212,12 +214,15 @@ def eval_lobe(lb: Lobes, wo, wi):
     if lb.has(FRESNEL_BLEND):
         out = torch.where((k[..., None] == FRESNEL_BLEND) & same,
                           _fresnel_blend_eval(lb, wo, wi), out)
+    if _has_fourier(lb):
+        out = torch.where(k[..., None] == FOURIER,
+                          fb.eval_fourier(lb.fourier, wo, wi,
+                                          _fourier_idx(lb)), out)
     return out
 
 
 def pdf_lobe(lb: Lobes, wo, wi):
     """Sampling density of one lobe slot (0 for delta kinds)."""
-    check_ported(lb.present_kinds)
     k = lb.kind
     same = same_hemisphere(wo, wi)
     out = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
@@ -237,6 +242,10 @@ def pdf_lobe(lb: Lobes, wo, wi):
             p_fb = torch.where(same & ok,
                                0.5 * (cos_hemisphere_pdf(wi) + p_mf), 0.0)
             out = torch.where(k == FRESNEL_BLEND, p_fb, out)
+    if _has_fourier(lb):
+        out = torch.where(k == FOURIER,
+                          fb.pdf_fourier(lb.fourier, wo, wi,
+                                         _fourier_idx(lb)), out)
     return torch.clamp_min(out, 0.0)
 
 
@@ -256,7 +265,6 @@ def _refract_local(wo, eta_front, eta_back):
 def sample_lobe(lb: Lobes, wo, u2):
     """Sample an incident direction from one lobe slot: (f, wi, pdf, is_delta);
     for delta kinds the pdf is the mass of the chosen branch."""
-    check_ported(lb.present_kinds)
     k = lb.kind
     u, v = u2[..., 0], u2[..., 1]
     has = lb.has
@@ -294,9 +302,18 @@ def sample_lobe(lb: Lobes, wo, u2):
         diel_reflect = v < r_coeff
         wi_diel = torch.where(diel_reflect[..., None], wi_mirror, wi_refr)
         wi = torch.where(k3 == SPEC_DIELECTRIC, wi_diel, wi)
+    if _has_fourier(lb):
+        f_f, wi_f, pdf_f = fb.sample_fourier_bsdf(lb.fourier, wo, u2,
+                                                  _fourier_idx(lb))
+        wi = torch.where(k3 == FOURIER, wi_f, wi)
 
     f = eval_lobe(lb, wo, wi)
     p = pdf_lobe(lb, wo, wi)
+    if _has_fourier(lb):
+        # The azimuth sampler returns its own f and pdf for the sampled
+        # direction.
+        f = torch.where(k3 == FOURIER, f_f, f)
+        p = torch.where(k == FOURIER, pdf_f, p)
     if has(MICROFACET, FRESNEL_BLEND):
         # Microfacet / FresnelBlend-specular samples below the horizon are
         # rejected.

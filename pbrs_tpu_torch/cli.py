@@ -7,6 +7,7 @@ far; any other flag or preset exits with "not yet ported".
     python -m pbrs_tpu_torch.cli --sampler sobol --integrator direct
     python -m pbrs_tpu_torch.cli --filter gaussian:1.5 \
         --checkpoint film.npz --checkpoint_every 4
+    python -m pbrs_tpu_torch.cli --scene_name fourier_plastic --compact on
 
 --use_single_thread / --use_multi_thread are accepted and ignored, as the
 reference does (determinism comes from the counter-based sampler, not the
@@ -60,6 +61,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also write <scene>-mtl.png (1 spp)")
     p.add_argument("--use_single_thread", action="store_true")
     p.add_argument("--use_multi_thread", action="store_true")
+    p.add_argument("--compact", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="shrink the bounce wavefront of the wave and general "
+                        "paths to a measured per-depth schedule with a "
+                        "spatial block re-sort (the same estimate per "
+                        "lane); auto is off until the tuner is ported")
     p.add_argument("--debug_checks", action="store_true",
                    help="count per-bounce invariant violations (NaN "
                         "radiance/throughput, non-unit normals/frames, hit "
@@ -139,7 +146,7 @@ def main(argv=None) -> int:
         sampler_kind=args.sampler, film=film,
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every, pixel_filter=pixel_filter,
-        debug_checks=args.debug_checks)
+        debug_checks=args.debug_checks, compact=args.compact)
     wall = time.time() - t0
     mrays = stats.traced_rays / max(stats.wall_time, 1e-9) / 1e6
     print(f"whole render time = {wall:.2f}s ({mrays:.1f} Mrays/s, "

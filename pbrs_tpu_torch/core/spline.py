@@ -1,12 +1,14 @@
-"""Natural cubic splines (host, NumPy). Mirrors the host part of
-pbrs_tpu/core/spline.py: ``tridiagonal_solve`` and ``CubicSpline``, which
-spectral resampling in ``radiometry.py`` uses. The device Catmull-Rom
-machinery serves the Fourier BSDF and lands with it.
+"""Splines. Mirrors pbrs_tpu/core/spline.py: the host's natural cubic
+spline (``tridiagonal_solve``, ``CubicSpline``, NumPy), which spectral
+resampling in ``radiometry.py`` uses, and the tensor-side Catmull-Rom
+weights (``find_interval``, ``catmull_rom_weights``, ``catmull_rom_taps``)
+that the Fourier BSDF interpolates its zenith grids with.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def tridiagonal_solve(a, b, c, d):
@@ -63,3 +65,58 @@ class CubicSpline:
         # Out-of-domain clamps to the endpoint values.
         y = np.where(x <= self.xs[0], self.ys[0], y)
         return np.where(x >= self.xs[-1], self.ys[-1], y)
+
+
+# ------------------------- device (Catmull-Rom) ----------------------------
+
+def find_interval(grid, x):
+    """Largest i with grid[i] <= x, clamped to [0, len-2]."""
+    i = torch.searchsorted(grid, x.contiguous(), right=True) - 1
+    return torch.clamp(i, 0, grid.shape[0] - 2)
+
+
+def catmull_rom_weights(grid, x):
+    """Four interpolation weights over grid nodes [i-1, i, i+1, i+2] with
+    one-sided boundary derivatives. Returns (offset = i-1, [..., 4]
+    weights); the weights sum to 1."""
+    n = grid.shape[0]
+    i = find_interval(grid, x)
+    x0 = grid[i]
+    x1 = grid[i + 1]
+    dx = torch.where(x1 == x0, 1.0, x1 - x0)
+    t = (x - x0) / dx
+    t2 = t * t
+    t3 = t2 * t
+
+    w1 = 2.0 * t3 - 3.0 * t2 + 1.0
+    w2 = -2.0 * t3 + 3.0 * t2
+
+    has_prev = i > 0
+    im1 = torch.clamp_min(i - 1, 0)
+    span_p = grid[i + 1] - grid[im1]
+    d0t = (t3 - 2.0 * t2 + t)
+    d0 = d0t * dx / torch.where(span_p == 0.0, 1.0, span_p)
+    w0 = torch.where(has_prev, -d0, 0.0)
+    w2 = w2 + torch.where(has_prev, d0, 0.0)
+    w1 = w1 + torch.where(has_prev, 0.0, -d0t)
+    w2 = w2 + torch.where(has_prev, 0.0, d0t)
+
+    has_next = (i + 2) < n
+    ip2 = torch.clamp_max(i + 2, n - 1)
+    span_n = grid[ip2] - grid[i]
+    d1t = (t3 - t2)
+    d1 = d1t * dx / torch.where(span_n == 0.0, 1.0, span_n)
+    w3 = torch.where(has_next, d1, 0.0)
+    w1 = w1 - torch.where(has_next, d1, 0.0)
+    w2 = w2 + torch.where(has_next, 0.0, d1t)
+    w1 = w1 - torch.where(has_next, 0.0, d1t)
+
+    # Tap k addresses node clip(i-1+k, 0, n-1); out-of-range taps carry
+    # zero weight.
+    return i - 1, torch.stack([w0, w1, w2, w3], dim=-1)
+
+
+def catmull_rom_taps(grid, offset):
+    """Clamped node indices for the four weights: [..., 4]."""
+    k = torch.arange(4, dtype=offset.dtype, device=offset.device)
+    return torch.clamp(offset[..., None] + k, 0, grid.shape[0] - 1)

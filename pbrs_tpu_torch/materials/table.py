@@ -1,10 +1,10 @@
 """Material table: materials compiled to per-slot lobe templates. Mirrors
-pbrs_tpu/materials/table.py for the Lambert, matte (Lambert or
-Oren-Nayar), metal, glossy, mirror, dielectric, plastic, substrate
-(FresnelBlend) and uber materials and textured slots; Fourier raises
-NotImplementedError until its slice is ported. The JAX package's packed
-one-hot row layout is not
-ported: a hit's row is one indexed load.
+pbrs_tpu/materials/table.py: the Lambert, matte (Lambert or Oren-Nayar),
+metal, glossy, mirror, dielectric, plastic, substrate (FresnelBlend), uber
+and Fourier materials and textured slots. Each Fourier material brings its
+own table; ``build`` stacks them into the scene's one ``fourier`` table
+and a lobe's alpha[0] holds its table's index. The JAX package's packed
+one-hot row layout is not ported: a hit's row is one indexed load.
 """
 
 from __future__ import annotations
@@ -15,18 +15,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..bxdf import fourier as fb
 from ..bxdf import fresnel as fr
 from ..bxdf import lobes as lb
 from ..bxdf import microfacet as mf
 from ..textures import textures as tex
 
 MAX_LOBES = 5
-
-
-def _not_ported(name):
-    raise NotImplementedError(
-        f"pbrs_tpu.materials.table.MaterialBuilder.{name} is not ported to "
-        "pbrs_tpu_torch yet")
 
 
 @dataclass
@@ -42,6 +37,7 @@ class MaterialTable:
     k: torch.Tensor  # [M,L,3]
     tex_id: torch.Tensor  # [M,L] int32, -1 = solid albedo
     emission: torch.Tensor  # [M,3]
+    fourier: object = None  # scene-level FourierTable, if any material uses it
     textured_slots: tuple = ()
     present_kinds: tuple = (lb.LAMBERT,)
 
@@ -53,14 +49,14 @@ class MaterialTable:
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)})
+            if isinstance(getattr(self, f.name),
+                          (torch.Tensor, fb.FourierTable))})
 
 
 def shading_at(table: MaterialTable, textures: tex.TextureTable, mat_id, uv,
                pos):
     """(Lobes, emission) for a hit batch: mat_id [N], uv [N,2], pos [N,3].
     mat_id < 0 (a miss) gives no lobes and black emission."""
-    lb.check_ported(table.present_kinds)
     safe = torch.clamp_min(mat_id, 0).to(torch.int64)
     f = {name: getattr(table, name)[safe] for name in lb.FIELDS}
     albedo = f["albedo"]
@@ -76,7 +72,8 @@ def shading_at(table: MaterialTable, textures: tex.TextureTable, mat_id, uv,
     f["albedo"] = albedo
     f["kind"] = torch.where(hit_ok[..., None], f["kind"], lb.NONE)
     emission = torch.where(hit_ok[..., None], table.emission[safe], 0.0)
-    return lb.Lobes(**f, present_kinds=table.present_kinds), emission
+    return lb.Lobes(**f, fourier=table.fourier,
+                    present_kinds=table.present_kinds), emission
 
 
 def lobes_at(table, textures, mat_id, uv, pos) -> lb.Lobes:
@@ -115,6 +112,7 @@ class MaterialBuilder:
 
     def __init__(self):
         self.materials = []  # list[(lobes, emission)]
+        self.fourier_tables = []
 
     def _add(self, lobes, emission=(0, 0, 0)) -> int:
         assert len(lobes) <= MAX_LOBES
@@ -198,8 +196,12 @@ class MaterialBuilder:
                                fr_kind=fr.DIELECTRIC, eta=(1.0, eta)))
         return self._add(lobes)
 
-    def add_fourier(self, *a, **k):
-        _not_ported("add_fourier")
+    def add_fourier(self, table) -> int:
+        """Measured Fourier BSDF with its own table; the table's index rides
+        in alpha[0], which the Fourier model does not read."""
+        idx = len(self.fourier_tables)
+        self.fourier_tables.append(table)
+        return self._add([_Lobe(lb.FOURIER, alpha=(float(idx), 0.0))])
 
     def add_substrate(self, kd, ks, roughness: float,
                       remap_roughness: bool = True, kd_tex: int = -1) -> int:
@@ -239,6 +241,9 @@ class MaterialBuilder:
         t = torch.from_numpy
         return MaterialTable(
             **{name: t(arr) for name, arr in cols.items()},
-            emission=t(emission), textured_slots=tuple(sorted(textured)),
+            emission=t(emission),
+            fourier=(fb.concat_tables(self.fourier_tables)
+                     if self.fourier_tables else None),
+            textured_slots=tuple(sorted(textured)),
             present_kinds=tuple(sorted(
                 {l.kind for ll, _ in mats for l in ll})))

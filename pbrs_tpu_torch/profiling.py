@@ -13,7 +13,9 @@ For each route: wall time per sample index (host clock around work that
 ends in a synchronize), device busy time per sample (the self device time
 of every kernel in a torch.profiler window), the busy share, the kernels
 that take most of the device time, and the device time of camera-ray
-generation alone (CUDA events). On route auto through a fused bounce (K2
+generation alone (CUDA events), and the shrink schedule of a compacted
+route (``profile_route(..., compact=True)``). On route auto through a
+fused bounce (K2
 for Cornell, K3 for plates), also each of that kernel's launches in sample
 0, replayed: its live lanes and device ms, and their sum a sample, drawing
 PCG and Sobol'. Prints one JSON line per route, with the card's name. CUDA
@@ -88,7 +90,8 @@ def per_bounce_ms(scene, depth, msaa, sampler, iters=20):
     return rows, sum(r["ms"] for r in rows)
 
 
-def profile_route(scene, route, depth, msaa, samples=4, warmup=2):
+def profile_route(scene, route, depth, msaa, samples=4, warmup=2,
+                  nee_mode="twoarm", compact=False):
     from . import render
     from .core import sampler as smp
     from .integrators import wavefront
@@ -96,7 +99,9 @@ def profile_route(scene, route, depth, msaa, samples=4, warmup=2):
     n = scene.camera.width * scene.camera.height
     pix = torch.arange(n, dtype=torch.int32, device=scene.device)
     sampler = smp.PCGSampler(0)
-    name, step = render.make_integrator(scene, sampler, depth, msaa, route)
+    name, step = render.make_integrator(
+        scene, sampler, depth, msaa, route, nee_mode=nee_mode,
+        compact_pilot=pix if compact else None)
     for s in range(warmup):
         step(pix, s)
     torch.cuda.synchronize()
@@ -127,6 +132,7 @@ def profile_route(scene, route, depth, msaa, samples=4, warmup=2):
     torch.cuda.synchronize()
     return {
         "route": route, "integrator": name, "lanes": n, "depth": depth,
+        "schedule": getattr(step, "schedule", None),
         "wall_ms_per_sample": wall_ms,
         "device_busy_ms_per_sample": busy_ms,
         "busy_share": busy_ms / wall_ms,

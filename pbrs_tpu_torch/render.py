@@ -1,6 +1,6 @@
 """Render loop: film accumulation over sample launches, checkpoint/resume.
-Mirrors pbrs_tpu/render.py (the tuner, compaction and profiling are not
-ported yet).
+Mirrors pbrs_tpu/render.py, block compaction included (the tuner and
+profiling are not ported yet).
 
 The pixel grid (in chunks of at most 2^20 pixels) renders one sample
 index per launch, accumulating into a film. The sampler is PCG, Sobol' or
@@ -34,6 +34,15 @@ equals an uninterrupted one bit for bit.
 
 The direct integrator and the normal / material visualizers
 (`integrator=`) run through the same tracers, by route.
+
+compact=True (or "on") runs the wave path (K4) and the general wavefront
+on a shrinking batch: a pilot pass at the launch's lane count measures
+each bounce's covered lanes (`wavefront.measure_alive`), `auto_schedule`
+turns them into static per-bounce capacities, and every launch of that
+lane count compacts its live lanes in blocks of 8 between bounces. A
+launch that does not tile into 8-lane blocks, or of another lane count (a
+tail chunk), takes the masked loop, as in the JAX package. compact="auto"
+is off: it waits for the tuner. K2 and K3 do not compact.
 """
 
 from __future__ import annotations
@@ -74,6 +83,10 @@ class RenderStats:
     integrator: str = ""
     # debug_checks: {invariant: violation count} (debug_audit.py).
     audit: dict | None = None
+    # compact: the per-bounce lane capacities, and the launches that ran
+    # the compacting loop.
+    schedule: tuple | None = None
+    compacted_launches: int = 0
 
 
 @dataclass
@@ -130,27 +143,49 @@ def make_integrator(scene, sampler, max_depth: int, msaa: int,
                     route: str = "auto", bvh_threshold: int | None = None,
                     integrator: str = "path", nee_mode: str = "twoarm",
                     use_nee: bool = True, filter_table=None,
-                    audit: bool = False):
+                    audit: bool = False, compact_pilot=None):
     """(name, fn): fn(pixel_idx, sample_idx) -> (radiance [N,3], traced-ray
     count), and with audit=True a third result, the [K] debug_audit
     counts. `scene` must already be on its device; bvh_threshold overrides
     the family size above which the general path traces a family with
     K5. A direct or visualizer pass counts every segment it hands a
     tracer with a live extent. use_nee=False, a filter table or audit
-    keep route auto on the general path."""
+    keep route auto on the general path.
+
+    compact_pilot: a pixel batch (the launch's lanes) to measure a shrink
+    schedule on with sample 0 (``measured_schedule``); the wave and
+    general paths of the path integrator then compact every launch of
+    that lane count that tiles into blocks (the name ends in
+    "_compact"). fn.schedule holds the schedule (None when nothing
+    compacts) and fn.compacted counts the compacted launches."""
     _check_choices(route, integrator, nee_mode)
     _check_options(integrator, nee_mode, use_nee, filter_table, audit)
     on_cuda = scene.device.type == "cuda"
     general_only = not use_nee or filter_table is not None or audit
+    compact = (compact_pilot is not None and integrator == "path"
+               and not audit and max_depth > 1)
     if (integrator == "path" and route == "auto" and on_cuda
             and not general_only):
         name, fused = _fused_integrator(scene, sampler, nee_mode,
                                         bvh_threshold)
         if fused is not None:
+            sched = None
+            if compact and isinstance(fused, fw.FusedWaveIntegrator):
+                sched = measured_schedule(scene, sampler, compact_pilot,
+                                          fused.intersect_fn, max_depth,
+                                          msaa, nee_mode)
+
             def fused_fn(pix, s):
+                # Only the wave integrator has a schedule (K2 and K3 do
+                # not compact).
+                kw = {}
+                if _compacts(sched, pix):
+                    fused_fn.compacted += 1
+                    kw["schedule"] = sched
                 return fused.render_samples(sampler, pix, s,
-                                            max_depth=max_depth, msaa=msaa)
-            return name, fused_fn
+                                            max_depth=max_depth, msaa=msaa,
+                                            **kw)
+            return _tag(name, fused_fn, sched)
     use_kernels = route == "general" or (route == "auto" and on_cuda)
     isect_fn, occl_fn = trace_dispatch.make_trace_fns(scene, use_kernels,
                                                       bvh_threshold)
@@ -160,15 +195,48 @@ def make_integrator(scene, sampler, max_depth: int, msaa: int,
     name = "general" if use_kernels else "plain"
     if nee_mode == "folded":
         name += "_folded"
+    sched = (measured_schedule(scene, sampler, compact_pilot, isect_fn,
+                               max_depth, msaa, nee_mode) if compact
+             else None)
 
     def general_fn(pix, s):
+        use = _compacts(sched, pix)
+        general_fn.compacted += int(use)
         return wavefront.render_samples(scene, sampler, pix, s, isect_fn,
                                         occl_fn, max_depth=max_depth,
                                         msaa=msaa, nee_mode=nee_mode,
                                         use_nee=use_nee,
                                         filter_table=filter_table,
-                                        audit=audit)
-    return name, general_fn
+                                        audit=audit,
+                                        shrink_schedule=sched if use
+                                        else None)
+    return _tag(name, general_fn, sched)
+
+
+def measured_schedule(scene, sampler, pixel_idx, intersect_fn, max_depth,
+                      msaa, nee_mode="twoarm"):
+    """A pilot ``wavefront.measure_alive`` on the launch's lanes (sample 0;
+    folded NEE counts the lanes that may owe a pending too), turned into
+    per-bounce capacities by ``wavefront.auto_schedule``."""
+    counts = wavefront.measure_alive(scene, sampler, pixel_idx, 0,
+                                     intersect_fn, max_depth=max_depth,
+                                     msaa=msaa, owed=nee_mode == "folded")
+    return wavefront.auto_schedule(counts.cpu().tolist(),
+                                   int(pixel_idx.shape[0]))
+
+
+def _compacts(sched, pix):
+    """Whether a launch compacts: a schedule measured at its lane count,
+    which tiles into blocks (else the masked loop runs)."""
+    n = int(pix.shape[0])
+    return (sched is not None and n == sched[0]
+            and n % wavefront.COMPACT_BLOCK == 0)
+
+
+def _tag(name, fn, sched):
+    fn.schedule = sched
+    fn.compacted = 0
+    return (name + "_compact" if sched is not None else name), fn
 
 
 def _direct_fn(scene, sampler, max_depth, msaa, integrator, isect_fn,
@@ -229,7 +297,7 @@ def render_image(scene, spp: int = 4, max_depth: int = 5,
                  checkpoint_path: str | None = None,
                  checkpoint_every: int = 0, use_nee: bool = True,
                  pixel_filter: tuple | None = None,
-                 debug_checks: bool = False):
+                 debug_checks: bool = False, compact: bool | str = "auto"):
     """Render the scene camera view. Returns (image [H,W,3] np.float32,
     RenderStats). spp is rounded up to a square (msaa^2 strata). The
     render runs on the card unless `device` asks for another device
@@ -244,8 +312,14 @@ def render_image(scene, spp: int = 4, max_depth: int = 5,
     BSDF-only estimator. pixel_filter: (kind, radius), e.g.
     ("gaussian", 1.5), applied by filter importance sampling.
     debug_checks: count the invariant violations of each bounce into
-    stats.audit (path integrator only)."""
+    stats.audit (path integrator only). compact: True / "on" compacts the
+    wave and general paths' launches to a measured schedule
+    (stats.schedule); False / "off" and "auto" (no tuner yet) do not."""
     _check_choices(route, integrator, nee_mode)
+    if compact not in (True, False, "auto", "on", "off"):
+        raise ValueError(f"compact must be True, False, 'auto', 'on' or "
+                         f"'off', got {compact!r}")
+    compact = compact in (True, "on")
     if sampler_kind not in SAMPLERS:
         raise ValueError(f"sampler_kind must be one of {sorted(SAMPLERS)}, "
                          f"got {sampler_kind!r}")
@@ -267,11 +341,6 @@ def render_image(scene, spp: int = 4, max_depth: int = 5,
     sampler = SAMPLERS[sampler_kind](seed)
     table = (flt.filter_table(pixel_filter, dev) if pixel_filter is not None
              else None)
-    name, kernel = make_integrator(scene, sampler, max_depth, msaa, route,
-                                   integrator=integrator, nee_mode=nee_mode,
-                                   use_nee=use_nee, filter_table=table,
-                                   audit=debug_checks)
-
     chunk = min(n, chunk_pixels or (1 << 20))
     n_chunks = (n + chunk - 1) // chunk
     pad_n = n_chunks * chunk
@@ -281,8 +350,15 @@ def render_image(scene, spp: int = 4, max_depth: int = 5,
                  if pad_n > n else order)
     pix_dev = [torch.from_numpy(pixel_all[c * chunk:(c + 1) * chunk]).to(dev)
                for c in range(n_chunks)]
+    name, kernel = make_integrator(scene, sampler, max_depth, msaa, route,
+                                   integrator=integrator, nee_mode=nee_mode,
+                                   use_nee=use_nee, filter_table=table,
+                                   audit=debug_checks,
+                                   compact_pilot=pix_dev[0] if compact
+                                   else None)
 
-    stats = RenderStats(spp=spp_total, integrator=name)
+    stats = RenderStats(spp=spp_total, integrator=name,
+                        schedule=getattr(kernel, "schedule", None))
     # The device sums start from the film's, so a resumed render adds its
     # samples in the same order as an uninterrupted one.
     accum = [torch.from_numpy(film.accum[pixel_all[c * chunk:
@@ -344,5 +420,6 @@ def render_image(scene, spp: int = 4, max_depth: int = 5,
     if debug_checks:
         stats.audit = aud_mod.report(audit)
     stats.traced_rays = int(traced)
+    stats.compacted_launches = getattr(kernel, "compacted", 0)
     stats.wall_time = time.time() - t0
     return film.mean_image(), stats

@@ -6,8 +6,9 @@ The scene is built in NumPy on the host and moved with one
 ``scene_from_arrays`` / ``scene_to_arrays`` carry a scene across as a flat
 dict of NumPy arrays, keyed by dotted field paths ("geom.quad_u", ...):
 every key of ARRAY_KEYS, plus "env.dist.<field>" for an image
-environment's sampling distribution and "instanced.<i>.<field>" for each
-instance group (its master's geometry fields and its transforms).
+environment's sampling distribution, "materials.fourier.<field>" for a
+scene's Fourier table and "instanced.<i>.<field>" for each instance group
+(its master's geometry fields and its transforms).
 ``scene_to_arrays`` reads any object with the same field names, so it also
 takes a scene of the JAX package.
 """
@@ -22,6 +23,7 @@ import torch
 
 from ..geometry.camera import Camera
 from ..accel import instanced as inst_mod
+from ..bxdf import fourier as fb
 from ..lights import env_sampling as es
 from ..lights import lights as lt
 from ..lights.lights import AreaLights, DeltaLights, EnvLight, LightsBuilder
@@ -84,6 +86,8 @@ ARRAY_KEYS = tuple(f"{g}.{n}" for g, ns in _TENSOR_FIELDS.items()
 
 _DIST_FIELDS = ("marginal_cdf", "conditional_cdf", "pdf_img", "alias_packed")
 _GROUP_FIELDS = ("fwd", "inv", "inv_t", "bbox_lo", "bbox_hi")
+_FOURIER_FIELDS = ("mu", "cdf", "a0", "a_dense", "m_lookup")
+_FOURIER_STATICS = ("eta", "n_channels", "m_cap", "n_tables")
 
 
 def _np(v):
@@ -102,6 +106,10 @@ def scene_to_arrays(scene) -> dict:
     if dist is not None:
         for name in _DIST_FIELDS:
             out[f"env.dist.{name}"] = _np(getattr(dist, name))
+    fourier = getattr(scene.materials, "fourier", None)
+    if fourier is not None:
+        for name in _FOURIER_FIELDS + _FOURIER_STATICS:
+            out[f"materials.fourier.{name}"] = _np(getattr(fourier, name))
     for i, grp in enumerate(getattr(scene, "instanced", ())):
         for name in _TENSOR_FIELDS["geom"]:
             out[f"instanced.{i}.geom.{name}"] = _np(getattr(grp.geom, name))
@@ -131,6 +139,14 @@ def scene_from_arrays(d: dict) -> Scene:
             **{n: torch.from_numpy(np.array(d[f"env.dist.{n}"]))
                for n in _DIST_FIELDS},
             image=env.image.clone(), scale=env.scale.clone())
+    fourier = None
+    if "materials.fourier.mu" in d:
+        fd = {n: d[f"materials.fourier.{n}"]
+              for n in _FOURIER_FIELDS + _FOURIER_STATICS}
+        fourier = fb.FourierTable(
+            **{n: torch.from_numpy(np.array(fd[n])) for n in _FOURIER_FIELDS},
+            eta=float(fd["eta"]),
+            **{n: int(fd[n]) for n in _FOURIER_STATICS[1:]})
     groups = []
     while f"instanced.{len(groups)}.fwd" in d:
         pre = f"instanced.{len(groups)}."
@@ -143,7 +159,7 @@ def scene_from_arrays(d: dict) -> Scene:
     return Scene(
         geom=GeometryTables(**g("geom")),
         materials=MaterialTable(
-            **g("materials"),
+            **g("materials"), fourier=fourier,
             textured_slots=tuple(sorted(set(np.nonzero(tex >= 0)[1].tolist()))),
             present_kinds=tuple(sorted(set(mkind[mkind != 0].tolist())))),
         textures=TextureTable(**g("textures"), present_kinds=tuple(sorted(

@@ -1,8 +1,8 @@
 """PBRT AST interpreter -> Scene buffers. A copy of
 pbrs_tpu/scene/pbrt/loader.py that builds the port's SceneBuilder; both
 image reads (environment map, image textures) go through
-``io/image.py:read_png_rgb`` instead of PIL, and Fourier materials with a
-table raise NotImplementedError until the Fourier BSDF is ported.
+``io/image.py:read_png_rgb`` instead of PIL, and a Fourier material's
+``bsdffile`` is read by ``bxdf/fourier.py:load_scatfun``.
 
 [ref: scene/src/loader.rs:22-855]
 
@@ -23,6 +23,7 @@ import os
 import numpy as np
 
 from ... import radiometry
+from ...bxdf import fourier as fourier_mod
 from ...geometry import camera as cam_mod
 from ...geometry import transform as tf
 from ...io import image as io_image
@@ -572,9 +573,8 @@ class PbrtLoader:
         if impl == "fourier":
             bsdffile = params.string("bsdffile")
             if bsdffile:
-                raise NotImplementedError(
-                    "pbrs_tpu.bxdf.fourier (the fourier material's table) is "
-                    "not ported to pbrs_tpu_torch yet")
+                return m.add_fourier(fourier_mod.load_scatfun(
+                    self.resolve(bsdffile)))
             log.error("fourier material without bsdffile; substituting matte")
             return m.add_matte((0.5, 0.5, 0.5))
         log.error("unrecognized material %r; substituting matte", impl)

@@ -1,7 +1,7 @@
 """Preset scenes. Mirrors pbrs_tpu/scene/presets.py: cornell_box, quad,
 quad_light, two_perlin_spheres, earth, mixed_spheres, plates, env_mapped,
-and the mesh scenes everything and mesh_ball (fourier_plastic waits for
-the Fourier tables). Presets whose upstream image assets are absent use
+the mesh scenes everything and mesh_ball, and fourier_plastic (measured
+BSDFs). Presets whose upstream image or .bsdf assets are absent use
 procedural stand-ins, as the JAX package's do.
 """
 
@@ -301,6 +301,40 @@ def mesh_ball(levels: int = 4) -> Scene:
     return b.build()
 
 
+def fourier_plastic() -> Scene:
+    """Measured-BSDF (Fourier) scene: spheres with Fourier tables of
+    different albedos next to a microfacet plastic, over a Fourier floor
+    under a quad light. The .bsdf assets are absent, so the tables are
+    synthetic Lambert expansions (``fourier.make_lambert_table``) that take
+    the same path: Catmull-Rom mu interpolation, the cosine series, zenith
+    and azimuth CDF inversion."""
+    from ..bxdf import fourier as fb
+
+    b = SceneBuilder()
+    floor_f = b.materials.add_fourier(fb.make_lambert_table(0.55, n_mu=32))
+    m_lo = b.materials.add_fourier(fb.make_lambert_table(0.25, n_mu=32))
+    m_hi = b.materials.add_fourier(fb.make_lambert_table(0.8, n_mu=32))
+    plastic = b.materials.add_plastic((0.25, 0.3, 0.5), (0.6, 0.6, 0.6),
+                                      0.08)
+    light_c = (10.0, 10.0, 10.0)
+    light = b.materials.add_diffuse_light(light_c)
+
+    g = b.geometry
+    g.add_quad((-10, 0, -10), (20, 0, 0), (0, 0, 20), floor_f)
+    g.add_sphere((-2.4, 1.0, 0.0), 1.0, m_lo)
+    g.add_sphere((0.0, 1.0, 0.0), 1.0, m_hi)
+    g.add_sphere((2.4, 1.0, 0.0), 1.0, plastic)
+    g.add_quad((-1.5, 6.0, -1.5), (3.0, 0, 0), (0, 0, 3.0), light)
+    b.lights.add_area_quad(light_c, (-1.5, 6.0, -1.5), (3.0, 0, 0),
+                           (0, 0, 3.0))
+    b.lights.env = DARK_ROOM
+
+    cam = cam_mod.make_camera((800, 600), 40.0)
+    b.camera = cam_mod.looking_at(cam, (0, 2.4, -8.0), (0, 1.0, 0),
+                                  (0, 1, 0))
+    return b.build()
+
+
 PRESETS = {
     "cornell_box": cornell_box,
     "quad": quad,
@@ -312,4 +346,5 @@ PRESETS = {
     "everything": everything,
     "env_mapped": env_mapped,
     "mesh_ball": mesh_ball,
+    "fourier_plastic": fourier_plastic,
 }

@@ -183,7 +183,17 @@ def test_matte_and_substrate_rows_match_reference():
 
 
 def test_unported_kinds_raise():
+    """No lobe kind is refused any more: a FOURIER lobe without a scene
+    table evaluates as pbrs_tpu's does (f and pdf 0), and with one it is
+    held against pbrs_tpu in tests/test_torch_fourier.py."""
     rng = np.random.default_rng(3)
-    _, tl = _lobes(rng, [jlb.FOURIER])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tlb.eval_lobe(tlb.slot(tl, 0), torch.zeros(N, 3), torch.zeros(N, 3))
+    jl, tl = _lobes(rng, [jlb.FOURIER])
+    d = rng.normal(size=(2, N, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    wo, wi = torch.from_numpy(d[0]), torch.from_numpy(d[1])
+    for fn in ("eval_lobe", "pdf_lobe"):
+        got = getattr(tlb, fn)(tlb.slot(tl, 0), wo, wi)
+        want = getattr(jlb, fn)(jlb.slot(jl, 0), jnp.asarray(d[0]),
+                                jnp.asarray(d[1]))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert not got.any()

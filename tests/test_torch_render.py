@@ -75,8 +75,8 @@ def test_cli_writes_exr(tmp_path, capsys):
     assert "plain path on cpu" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--compact", "on"],
-                                  ["--scene_name", "fourier_plastic"],
+@pytest.mark.parametrize("argv", [["--phase_timings"],
+                                  ["--trace_mode", "onehot"],
                                   ["--profile_dir", "prof"],
                                   ["--trace_mode", "rowdense"]])
 def test_cli_refuses_unported(argv):
@@ -107,18 +107,18 @@ def test_card_is_the_default(monkeypatch):
 
 
 def test_unported_integrator_and_route_raise():
-    """Every integrator, sampler and NEE mode of pbrs_tpu is ported; an
-    unknown one, an unknown route, and the options still unported
-    (compaction, the profiler trace, the treelet trace modes) are
+    """Every integrator, sampler, NEE mode and compaction setting of
+    pbrs_tpu is ported; an unknown one, an unknown route, and the options
+    still unported (the profiler trace, the treelet trace modes) are
     refused."""
     scene = cli.with_resolution(presets.cornell_box(), 8, 8)
     for kw, what in (({"integrator": "bdpt"}, "integrator"),
                      ({"route": "fast"}, "route"),
                      ({"sampler_kind": "halton"}, "sampler_kind"),
-                     ({"nee_mode": "onearm"}, "nee_mode")):
+                     ({"nee_mode": "onearm"}, "nee_mode"),
+                     ({"compact": "sometimes"}, "compact")):
         with pytest.raises(ValueError, match=what):
             render.render_image(scene, device="cpu", **kw)
-    for kw in ({"compact": True}, {"profile_dir": "prof"},
-               {"trace_mode": "rowdense"}):
+    for kw in ({"profile_dir": "prof"}, {"trace_mode": "rowdense"}):
         with pytest.raises(TypeError):
             render.render_image(scene, device="cpu", **kw)

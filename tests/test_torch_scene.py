@@ -100,14 +100,19 @@ def test_camera_rays_match(sample):
 
 
 def test_unported_parts_raise():
-    """The Fourier BSDF is SceneBuilder's one unported part; instance
-    groups, image textures and Oren-Nayar matte build."""
-    b = buffers.SceneBuilder()
-    with pytest.raises(NotImplementedError, match="add_fourier"):
-        b.materials.add_fourier(None)
-    assert set(presets.PRESETS) == {
+    """SceneBuilder has no unported part left: the Fourier BSDF, instance
+    groups, image textures and Oren-Nayar matte build, and every preset of
+    pbrs_tpu is ported."""
+    from pbrs_tpu_torch.bxdf import fourier as tfb
+
+    fb = buffers.SceneBuilder()
+    assert fb.materials.add_fourier(tfb.make_lambert_table(0.5, 8)) == 0
+    assert fb.materials.build().fourier.n_tables == 1
+    assert set(presets.PRESETS) == set(jpresets.PRESETS) == {
         "cornell_box", "quad", "quad_light", "two_perlin_spheres", "earth",
-        "mixed_spheres", "plates", "env_mapped", "everything", "mesh_ball"}
+        "mixed_spheres", "plates", "env_mapped", "everything", "mesh_ball",
+        "fourier_plastic"}
+    b = buffers.SceneBuilder()
     master = GeometryBuilder()
     master.add_sphere((0, 0, 0), 1.0, 0)
     b.add_instance_group(master, [np.eye(4)])
