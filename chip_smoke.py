@@ -33,7 +33,15 @@ the folded general path masked and compacted, the wave route against the
 general path per lane, K4 and K1 bit-equal on its launches; compacted
 against masked per lane on fourier_plastic, mesh_ball 800x608 (folded
 general) and everything (wave), with K1 / K4 / K5 timed at each bounce's
-lane count and held bit-equal on the compacted launches. Every
+lane count and held bit-equal on the compacted launches. Then route
+auto's tuner (phase 31): the interior 1024^2 depth 5, mesh_ball 800x608
+depth 6 and Cornell 1024^2 depth 8, each candidate's ms a launch and the
+winner, a cache hit, render_image at its defaults taking the winner's
+kernels to the image of the winner's route pinned through
+make_integrator bit for bit, and a non-finite candidate raising; and the
+CLI's --phase_timings and --profile_dir on Cornell, whose trace names
+K2's kernel (phase 32). Phases that hold a route pin render_image's
+compact and nee_mode, so the tuner does not move them. Every
 phase prints one line or more; a failing phase raises, so the script
 exits non-zero.
 There is no CPU path: without a CUDA device the script fails. The line
@@ -44,6 +52,7 @@ plain time and bound; the last line is
 """
 
 import contextlib
+import glob
 import io
 import json
 import os
@@ -95,6 +104,9 @@ SHADOW_SAMPLE = 4096  # needed shadow rays a sweep whose tests are counted
 # bandwidth, PEAK_BYTES, and cuda_ms are prof_rounds', so the probe's Q2
 # and its phase here time the same way).
 PEAK_FLOPS = 67e12
+# render_image's compact and nee_mode pinned: the route make_integrator
+# takes, with no tuner (render_path and phases 27-28).
+PINNED = {"compact": False, "nee_mode": "twoarm"}
 
 
 def cornell(size):
@@ -784,14 +796,16 @@ def phase_cli():
     print(f"phase 6 cli: rc {rc}, image {img.shape}, mean {img.mean():.5f}")
     if not ok:
         raise AssertionError("the CLI render is not a finite, lit image")
-    # The interior through the CLI's --pbrt_file, on route auto (K4).
+    # The interior through the CLI's --pbrt_file, on route auto (K4), the
+    # tuner pinned off by --compact off --nee_mode twoarm.
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "interior.png")
         said = io.StringIO()
         with contextlib.redirect_stdout(said):
             rc = cli.main(["--pbrt_file", os.path.join(
                 REPO, "scenes", "interior", "interior.pbrt"), "--resolution",
-                "480x270", "--msaa", "1", "--depth", "5", "--output", out])
+                "480x270", "--msaa", "1", "--depth", "5", "--compact", "off",
+                "--nee_mode", "twoarm", "--output", out])
         img = image.read_png(out)
     last = said.getvalue().strip().splitlines()[-2]
     print(f"phase 6 cli --pbrt_file interior: rc {rc}, image {img.shape}, "
@@ -2109,7 +2123,8 @@ def render_path(phase, label, scene, depth, smi, route="auto",
         scene, route, pix, depth, reps, sampler, msaa, **kw)
     launches = {k: m.LAUNCHES for k, m in mods.items() if m.LAUNCHES}
     img, stats = render.render_image(scene, spp=msaa * msaa, max_depth=depth,
-                                     route=route, sampler_kind=sampler, **kw)
+                                     route=route, sampler_kind=sampler,
+                                     **{**PINNED, **kw})
     w, h = scene.camera.width, scene.camera.height
     opts = ", ".join(f"{k}={v}" for k, v in
                      {"route": route, "sampler": sampler, **kw}.items())
@@ -2626,7 +2641,8 @@ def phase_options(dev, smi):
                {"debug_checks": True}):
         for m in mods.values():
             m.LAUNCHES = 0
-        img, stats = render.render_image(scene, spp=4, max_depth=DEPTH, **kw)
+        img, stats = render.render_image(scene, spp=4, max_depth=DEPTH,
+                                         **PINNED, **kw)
         got = {k: m.LAUNCHES for k, m in mods.items() if m.LAUNCHES}
         print(f"phase 27 Cornell 256^2 {kw}: {stats.integrator}, launches "
               f"{got}, image mean {float(img.mean()):.5f}, audit "
@@ -2636,7 +2652,8 @@ def phase_options(dev, smi):
                 or (stats.audit is not None and sum(stats.audit.values()))):
             raise AssertionError(f"render_image with {kw} failed")
     full = render.Film(256, 256)
-    _, stats = render.render_image(scene, spp=16, max_depth=DEPTH, film=full)
+    _, stats = render.render_image(scene, spp=16, max_depth=DEPTH, film=full,
+                                   **PINNED)
     make = render.make_integrator
 
     def stop_at_4(*a, **k):
@@ -2653,7 +2670,7 @@ def phase_options(dev, smi):
         render.make_integrator = stop_at_4
         try:
             render.render_image(scene, spp=16, max_depth=DEPTH,
-                                checkpoint_path=ckpt)
+                                checkpoint_path=ckpt, **PINNED)
             raise AssertionError("the interrupt did not reach the caller")
         except KeyboardInterrupt:
             pass
@@ -2662,7 +2679,7 @@ def phase_options(dev, smi):
         film = render.Film.load(ckpt)
         at = film.samples_done
         render.render_image(scene, spp=16, max_depth=DEPTH, film=film,
-                            checkpoint_path=ckpt)
+                            checkpoint_path=ckpt, **PINNED)
         same = int((film.accum.view(np.int32)
                     != full.accum.view(np.int32)).sum())
         print(f"phase 27 checkpoint at sample {at} of 16 ({stats.integrator})"
@@ -2710,7 +2727,7 @@ def phase_accuracy(dev, smi):
     for seed in (3, 2):
         t0 = time.time()
         img, stats = render.render_image(scene, spp=1024, max_depth=DEPTH,
-                                         seed=seed)
+                                         seed=seed, **PINNED)
         mse[seed] = float(((img - ref) ** 2).mean())
         print(f"phase 28 accuracy: Cornell 256^2 depth {DEPTH} 1024 spp seed "
               f"{seed} via {stats.integrator}: MSE vs the JAX package's "
@@ -2973,6 +2990,196 @@ def phase_compaction(dev, smi):
     return launches
 
 
+# ------------------- the tuner and the profiler (phases 31-32) ---------------
+
+# Phase 31's scenes and depths: the interior's K4 main path (phase 15),
+# mesh_ball at benchmarks.json's 800x608, and Cornell (K2, phase 5).
+TUNER_SCENES = (("interior", 5), ("mesh_ball", MESH_DEPTH), ("cornell", DEPTH))
+
+
+def tuner_scene(label):
+    if label == "interior":
+        return interior(SIZE, SIZE)
+    if label == "mesh_ball":
+        return bench_scene("mesh_ball")
+    return cornell(SIZE)
+
+
+def tuner_kernels(tuned):
+    """The launch counts a tuned route must show: K2 or K3 for their
+    shortcut, else K1 (and K4 on the wave path), and K5 where a family is
+    above the BVH threshold."""
+    from pbrs_tpu_torch import tuner
+
+    if tuned.route == "auto":
+        return {"fused_diffuse": ["fused_bounce"],
+                "fused_single_lobe": ["fused_single_lobe"]}[tuned.label]
+    want = ["trace_flat"] + (["fused_wave"] if tuned.route == "wave" else [])
+    if tuner._scene_bvh_scale(tuned.scene):
+        want.append("trace_bvh")
+    return want
+
+
+def tuner_row(dev, smi, label, depth):
+    """One scene of phase 31 (see phase_tuner). Returns its figures."""
+    from pbrs_tpu_torch import render, tuner
+    from pbrs_tpu_torch.integrators import wavefront
+
+    scene = tuner_scene(label).to(dev)
+    w, h = scene.camera.width, scene.camera.height
+    n = w * h
+    # render_image's first chunk: the whole frame's lanes in Morton order.
+    order = wavefront.morton_pixel_order(w, h)
+    pix = torch.from_numpy(order).to(dev)
+    sampler = sampler_of("pcg")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tuned = tuner.tune(scene, sampler, pix, 0, depth=depth, msaa=MSAA)
+    torch.cuda.synchronize()
+    pilot_s = time.time() - t0
+    times = "; ".join(f"{k} {v * 1e3:.3f}" for k, v in tuned.times.items())
+    print(f"phase 31 tuner {label} {w}x{h} depth {depth} msaa {MSAA}: "
+          f"{tuned.measured} candidates timed, ms a launch (median of 2 "
+          f"after a warm-up): {times or 'none (K2 / K3, unmeasured)'}; "
+          f"winner {tuned.label} -> {tuned.name}, schedule {tuned.schedule};"
+          f" the tune took {pilot_s:.3f} s [{smi}]")
+    t0 = time.time()
+    again = tuner.tune(scene, sampler, pix, 0, depth=depth, msaa=MSAA)
+    again_s = time.time() - t0
+    mods = launch_counts()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    t0 = time.time()
+    img, stats = render.render_image(scene, spp=MSAA * MSAA, max_depth=depth,
+                                     device=dev)
+    torch.cuda.synchronize()
+    render_s = time.time() - t0
+    launches = {k: m.LAUNCHES for k, m in mods.items() if m.LAUNCHES}
+    _, fn = render.make_integrator(scene, sampler, depth, MSAA, tuned.route,
+                                   nee_mode=tuned.nee_mode,
+                                   schedule=tuned.schedule,
+                                   resort=tuned.resort)
+    acc = torch.zeros(n, 3, device=dev)
+    for s in range(MSAA * MSAA):
+        acc = acc + fn(pix, s)[0]
+    film = render.Film(w, h, samples_done=MSAA * MSAA)
+    film.accum[order] = acc.cpu().numpy()
+    pinned = film.mean_image()
+    bits = int((img.view(np.int32) != pinned.view(np.int32)).sum())
+    missing = [k for k in tuner_kernels(tuned) if not launches.get(k)]
+    print(f"phase 31 tuner {label}: second tune -> {again.label}, cache hit "
+          f"{again.cache_hit}, {again.measured} measurements, {again_s:.3f} "
+          f"s; render_image at its defaults, {stats.spp} spp -> "
+          f"{stats.integrator} (tuned {stats.tuned}) in {render_s:.3f} s, "
+          f"launches {launches}; image values not bit-equal to the winner's "
+          f"route pinned through make_integrator: {bits} of {img.size}")
+    shortcut = label == "cornell"
+    if (again.label != tuned.label or again.measured
+            or again.cache_hit == shortcut
+            or (tuned.measured == 0) != shortcut
+            or (shortcut and tuned.label != "fused_diffuse")
+            or stats.tuned != tuned.label or stats.integrator != tuned.name
+            or bits or missing or not np.isfinite(img).all()
+            or float(img.mean()) <= 0):
+        raise AssertionError(f"{label}: the tuned render is not the winner's "
+                             f"route (kernels {missing} not launched)")
+    return {"scene": label, "winner": tuned.label, "name": tuned.name,
+            "ms": {k: v * 1e3 for k, v in tuned.times.items()},
+            "tune_s": pilot_s, "render_s": render_s, "launches": launches}
+
+
+def tuner_refuses(dev):
+    """A candidate whose radiance is not finite (the wave path patched
+    here, and only here) raises out of render_image."""
+    from pbrs_tpu_torch import cli, render, tuner
+    from pbrs_tpu_torch.accel import fused_wave as fw
+
+    scene = cli.with_resolution(mesh_scene("mesh_ball"), 256, 256).to(dev)
+    real = fw.FusedWaveIntegrator.render_samples
+
+    def non_finite(self, *a, **k):
+        rad, cnt = real(self, *a, **k)
+        return torch.full_like(rad, float("nan")), cnt
+
+    fw.FusedWaveIntegrator.render_samples = non_finite
+    try:
+        render.render_image(scene, spp=1, max_depth=MESH_DEPTH,
+                            compact=False, device=dev)
+    except tuner.CandidateError as e:
+        print(f"phase 31 a wave candidate patched to a non-finite radiance: "
+              f"render_image raises {type(e).__name__}: {e}")
+    else:
+        raise AssertionError("a non-finite candidate did not raise")
+    finally:
+        fw.FusedWaveIntegrator.render_samples = real
+
+
+def phase_tuner(dev, smi):
+    """Phase 31, route auto's tuner at full width: the interior 1024^2
+    depth 5 and mesh_ball 800x608 depth 6 (every candidate's ms a launch,
+    the winner, what the tune took) and Cornell 1024^2 depth 8 (K2,
+    unmeasured), each on render_image's first chunk (the frame in Morton
+    order). For each: a second tune is a cache hit with no measurement;
+    render_image at its defaults, 4 spp, takes the same winner, launches
+    its kernels (every launch count set to 0 just before and read just
+    after) and equals bit for bit the image of the winner's route pinned
+    through make_integrator. Then a candidate made non-finite raises out of
+    render_image. The decision cache lives in a directory of this phase."""
+    keys = ("PBRS_TUNER_CACHE", "PBRS_TUNER_NOCACHE")
+    saved = {k: os.environ.get(k) for k in keys}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["PBRS_TUNER_CACHE"] = tmp
+        os.environ.pop("PBRS_TUNER_NOCACHE", None)
+        try:
+            rows = [tuner_row(dev, smi, label, depth)
+                    for label, depth in TUNER_SCENES]
+            tuner_refuses(dev)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return rows
+
+
+def phase_profiler(dev, smi):
+    """Phase 32, the CLI's --phase_timings and --profile_dir on Cornell
+    1024^2, depth 8, msaa 2 (route auto, K2): the per-phase device timings
+    printed before the render, and a torch.profiler Chrome trace of the
+    render that names K2's kernel (fused_bounce_kernel)."""
+    from pbrs_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = os.path.join(tmp, "prof")
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            rc = cli.main(["--scene_name", "cornell_box", "--resolution",
+                           "1024x1024", "--msaa", str(MSAA), "--depth",
+                           str(DEPTH), "--phase_timings", "--profile_dir",
+                           prof, "--output", os.path.join(tmp, "c.exr")])
+        traces = sorted(glob.glob(os.path.join(prof, "*.json")))
+        names = set()
+        for path in traces:
+            with open(path) as f:
+                names |= {e.get("name", "") for e in
+                          json.load(f)["traceEvents"]}
+        size = sum(os.path.getsize(p) for p in traces)
+    lines = said.getvalue().splitlines()
+    phases = [ln.strip() for ln in lines if ln.startswith("  ")
+              and not ln.strip().startswith("sample")]
+    last = [ln for ln in lines if "whole render time" in ln]
+    k2 = sorted(nm for nm in names if "fused_bounce_kernel" in nm)
+    print(f"phase 32 cli --phase_timings --profile_dir, Cornell 1024^2 depth "
+          f"{DEPTH} msaa {MSAA}: rc {rc}; per-phase device timings (1 "
+          f"launch): {'; '.join(phases)}; {last}; trace: {len(traces)} "
+          f"file(s), {size} bytes, {len(names)} event names, K2's kernel "
+          f"{k2} [{smi}]")
+    if rc or len(phases) < 9 or not k2 or len(traces) != 1:
+        raise AssertionError("the CLI's phase timings or its trace of K2 "
+                             "are missing")
+
+
 def kernel_entry(name, source, replaces, launches, report):
     return {"name": name, "route": "cuda",
             "source": f"pbrs_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -3043,6 +3250,8 @@ def main():
     run(phase_accuracy, dev, smi)
     fourier_launches = run(phase_fourier, dev, smi)
     compact_launches = run(phase_compaction, dev, smi)
+    tuned_rows = run(phase_tuner, dev, smi)
+    run(phase_profiler, dev, smi)
     slice_launches = {k: fourier_launches.get(k, 0)
                       + compact_launches.get(k, 0)
                       for k in ("trace_flat", "trace_bvh", "fused_wave")}
@@ -3076,10 +3285,17 @@ def main():
         kernel_entry("mm_probe", "mm_probe.cu", "tools/_prof_rounds.py:72",
                      mm_launches, mm),
     ]
+    tuned_launches = {}
+    for row in tuned_rows:
+        for k, v in row["launches"].items():
+            tuned_launches[k] = tuned_launches.get(k, 0) + v
     for entry in kernels:
         if entry["name"] in slice_launches:
             # Launches on the Fourier and compacted routes of phases 29-30.
             entry["fourier_compact_launches"] = slice_launches[entry["name"]]
+        if entry["name"] in tuned_launches:
+            # Launches of phase 31's renders through the tuned route auto.
+            entry["tuned_launches"] = tuned_launches[entry["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -43,6 +43,7 @@ FILE_SECONDS = {
     "test_torch_fourier.py": 122.2,
     "test_render.py": 116.9,
     "test_torch_compaction.py": 116.2,
+    "test_torch_tuner.py": 101.2,
     "test_instanced.py": 114.0,
     "test_fourier.py": 104.1,
     "test_torch_wave.py": 101.9,
@@ -54,6 +55,7 @@ FILE_SECONDS = {
     "test_debug_audit.py": 75.8,
     "test_torch_fused_sky.py": 73.0,
     "test_torch_render_options.py": 72.4,
+    "test_torch_profiling.py": 40.0,
     "test_torch_single_lobe.py": 66.1,
     "test_torch_trace.py": 64.7,
     "test_torch_fused.py": 56.4,

@@ -649,10 +649,14 @@ class FusedWaveIntegrator:
     folded: PBRT's one-sample fold of NEE. The BSDF-sampled MIS arm rides
     the continuation ray, so a bounce traces one shadow batch, and its
     pending contribution is resolved by the next bounce's closest hit (one
-    epilogue trace resolves the last bounce's)."""
+    epilogue trace resolves the last bounce's).
+
+    trace_fns: the scene's (intersect_fn, occlude_fn) built already
+    (``dispatch.make_trace_fns(scene, True)``), in place of a tracer of its
+    own."""
 
     def __init__(self, scene, bvh_threshold: int | None = None,
-                 folded: bool = False):
+                 folded: bool = False, trace_fns=None):
         if folded and not scene_supports_wave_folded(scene):
             raise ValueError(
                 "wave folded NEE does not support Fourier materials; use "
@@ -661,8 +665,9 @@ class FusedWaveIntegrator:
         self.folded = bool(folded)
         self.tables = WaveTables.from_scene(scene)
         self.has_fourier = lb.FOURIER in self.tables.present_kinds
-        self.intersect_fn, self.occlude_fn = trace_dispatch.make_trace_fns(
-            scene, True, bvh_threshold)
+        self.intersect_fn, self.occlude_fn = (
+            trace_fns or trace_dispatch.make_trace_fns(scene, True,
+                                                      bvh_threshold))
 
     def _env(self, dirs):
         """(env radiance, distribution pdf or None) along dirs: folded
@@ -764,7 +769,7 @@ class FusedWaveIntegrator:
         return fout, iout
 
     def render_samples(self, sampler, pixel_idx, sample_idx, max_depth=5,
-                       msaa=2, rr_start=3, schedule=None):
+                       msaa=2, rr_start=3, schedule=None, resort=False):
         """(radiance [N,3], traced-ray count) for a (pixel, sample) batch:
         rays with a live extent at each closest hit, plus a shadow ray per
         lane alive after its hit for each shadow batch (2, or 1 folded)
@@ -776,7 +781,10 @@ class FusedWaveIntegrator:
         tracers launch on the reduced lane count. Each lane banks its
         contributions onto its original row in the masked loop's order, so
         with every block kept (p = 1) its radiance and the count are the
-        masked loop's."""
+        masked loop's. resort sorts the lanes' blocks spatially at each
+        bounce from the second on where nothing shrinks (schedule None
+        keeps all N lanes), as pbrs_tpu/accel/fused_wave.py:1555-1558
+        does."""
         fk.rng_kind(sampler)  # a sampler K4 cannot draw raises here
         scene = self.scene
         rays = wavefront.camera_rays(scene, sampler, pixel_idx, sample_idx,
@@ -794,11 +802,11 @@ class FusedWaveIntegrator:
         pend = None
         orig, bank = None, wavefront._add
         for bounce in range(max_depth):
-            if schedule is not None:
+            if schedule is not None or resort:
                 (rays, beta3, pix, samp, orig, spec_b, alive_b, pend,
                  bank) = wavefront.compact_step(
                     schedule, bounce, n, sampler, rays, beta.T, pix, samp,
-                    orig, spec > 0, alive > 0, pend, bank)
+                    orig, spec > 0, alive > 0, pend, bank, resort)
                 beta = beta3.T.contiguous()
                 alive, spec = alive_b.to(torch.int32), spec_b.to(torch.int32)
             count += (rays.t_max > 0.0).sum()

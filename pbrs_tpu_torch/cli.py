@@ -1,5 +1,5 @@
-"""Command-line entry point. Mirrors pbrs_tpu/cli.py for the flags ported so
-far; any other flag or preset exits with "not yet ported".
+"""Command-line entry point. Mirrors pbrs_tpu/cli.py: every flag of it
+parses; a preset not ported exits with "not yet ported".
 
     python -m pbrs_tpu_torch.cli --scene_name cornell_box --msaa 2 \\
         --depth 5 --resolution 256x256 --output cornell.exr
@@ -8,6 +8,15 @@ far; any other flag or preset exits with "not yet ported".
     python -m pbrs_tpu_torch.cli --filter gaussian:1.5 \
         --checkpoint film.npz --checkpoint_every 4
     python -m pbrs_tpu_torch.cli --scene_name fourier_plastic --compact on
+    python -m pbrs_tpu_torch.cli --pbrt_file scenes/interior/interior.pbrt \
+        --compact off --nee_mode twoarm
+    python -m pbrs_tpu_torch.cli --phase_timings --profile_dir prof/
+
+Route auto tunes on the card (tuner.py): with --compact or --nee_mode left
+at auto the render times each candidate path once and keeps the fastest;
+with both given it takes the first eligible fused path. --trace_mode takes
+auto or onehot, which both name the port's one tracer pair (K1 + K5); the
+JAX package's TPU fetch variants (rowdense, rowdyn, rowdynh) are refused.
 
 --use_single_thread / --use_multi_thread are accepted and ignored, as the
 reference does (determinism comes from the counter-based sampler, not the
@@ -22,6 +31,11 @@ import sys
 import time
 
 import torch
+
+# The JAX package's treelet fetch variants: TPU workarounds (row-shared
+# visits, scalar-indexed or HBM DMA treelet fetch) whose contract the BVH
+# kernel K5 carries.
+TPU_TRACE_MODES = ("rowdense", "rowdyn", "rowdynh")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,12 +75,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also write <scene>-mtl.png (1 spp)")
     p.add_argument("--use_single_thread", action="store_true")
     p.add_argument("--use_multi_thread", action="store_true")
+    p.add_argument("--trace_mode", default="auto",
+                   choices=["auto", "onehot"] + list(TPU_TRACE_MODES),
+                   help="tracer: auto and onehot both take the port's one "
+                        "tracer pair, the flat-bank kernel and the BVH "
+                        "kernel; rowdense, rowdyn and rowdynh (the JAX "
+                        "package's TPU treelet fetch variants) are refused")
     p.add_argument("--compact", default="auto",
                    choices=["auto", "on", "off"],
                    help="shrink the bounce wavefront of the wave and general "
                         "paths to a measured per-depth schedule with a "
                         "spatial block re-sort (the same estimate per "
-                        "lane); auto is off until the tuner is ported")
+                        "lane); auto: the tuner times masked, compacted "
+                        "and resorted on the card")
+    p.add_argument("--nee_mode", default="auto",
+                   choices=["auto", "twoarm", "folded"],
+                   help="next-event estimation: twoarm (a shadow ray for "
+                        "each MIS arm) or folded (the BSDF arm rides the "
+                        "continuation ray); auto: the tuner times both on "
+                        "the card, twoarm elsewhere")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler Chrome trace of the render "
+                        "here")
+    p.add_argument("--phase_timings", action="store_true",
+                   help="print per-phase device timings (raygen, trace, "
+                        "occlude, one bounce, the full path) of one launch "
+                        "before rendering")
     p.add_argument("--debug_checks", action="store_true",
                    help="count per-bounce invariant violations (NaN "
                         "radiance/throughput, non-unit normals/frames, hit "
@@ -96,6 +130,11 @@ def main(argv=None) -> int:
     args, rest = build_parser().parse_known_args(argv)
     if rest:
         sys.exit(f"pbrs_tpu_torch: {' '.join(rest)}: not yet ported")
+    if args.trace_mode in TPU_TRACE_MODES:
+        sys.exit(f"pbrs_tpu_torch: --trace_mode {args.trace_mode} is a TPU "
+                 "treelet fetch variant of the JAX package and is not "
+                 "ported: the BVH kernel (K5) carries its contract on the "
+                 "card. Use auto or onehot")
     from . import render as render_mod
     from .io import image as io_image
     from .scene import presets
@@ -139,6 +178,17 @@ def main(argv=None) -> int:
         kind, _, radius = args.filter.partition(":")
         pixel_filter = (kind, float(radius or 1.0))
 
+    if args.phase_timings:
+        from . import profiling
+
+        n = scene.camera.width * scene.camera.height
+        phases = profiling.profile_phases(scene, n_pixels=min(n, 1 << 20),
+                                          max_depth=args.depth,
+                                          seed=args.seed, device=device)
+        print("per-phase device timings (1 launch):")
+        for k, v in phases.items():
+            print(f"  {k}: {v}")
+
     t0 = time.time()
     img, stats = render_mod.render_image(
         scene, spp=spp, max_depth=args.depth, integrator=args.integrator,
@@ -146,11 +196,13 @@ def main(argv=None) -> int:
         sampler_kind=args.sampler, film=film,
         checkpoint_path=args.checkpoint,
         checkpoint_every=args.checkpoint_every, pixel_filter=pixel_filter,
-        debug_checks=args.debug_checks, compact=args.compact)
+        debug_checks=args.debug_checks, compact=args.compact,
+        nee_mode=args.nee_mode, profile_dir=args.profile_dir)
     wall = time.time() - t0
     mrays = stats.traced_rays / max(stats.wall_time, 1e-9) / 1e6
+    tuned = f", tuned {stats.tuned}" if stats.tuned else ""
     print(f"whole render time = {wall:.2f}s ({mrays:.1f} Mrays/s, "
-          f"{stats.integrator} path on {device})")
+          f"{stats.integrator} path on {device}{tuned})")
     rc = 0
     if args.debug_checks:
         from .integrators import debug_audit

@@ -3,7 +3,7 @@ pbrs_tpu/integrators/wavefront.py: camera rays with filter importance
 sampling, the masked ``path_radiance`` loop with two-arm or folded NEE or
 BSDF sampling alone (``use_nee=False``) and the ``--debug_checks`` audit,
 block compaction (``auto_schedule``, ``measure_alive``, ``block_compact``,
-``compact_step``) and ``render_samples``.
+``compact_step``, the sort-only ``resort`` pass) and ``render_samples``.
 
 Every bounce runs intersect -> shading (textures overlaid) -> emission on
 camera and post-delta segments -> NEE -> BSDF sample -> Russian roulette
@@ -12,7 +12,9 @@ loop over whole-batch tensor ops. Given a shrink schedule, the same loop
 runs each bounce on fewer lanes: between bounces the live lanes move, in
 blocks of COMPACT_BLOCK, into a smaller batch whose size a measured static
 schedule sets, and each lane banks its contributions onto its original
-row.
+row. ``resort`` runs the same step as a pure permutation at every bounce
+from the second on where the schedule keeps every lane: the live blocks go
+into spatial order, none dropped.
 """
 
 from __future__ import annotations
@@ -114,7 +116,8 @@ def _make_env_evaluator(scene, folded):
 
 def path_radiance(scene, rays, sampler, pixel_idx, sample_idx, intersect_fn,
                   occlude_fn, max_depth=5, rr_start=3, nee_mode="twoarm",
-                  use_nee=True, audit=False, shrink_schedule=None):
+                  use_nee=True, audit=False, shrink_schedule=None,
+                  resort=False):
     """(radiance [N,3], traced-ray count) along camera rays: closest hit,
     emission on camera segments, one-light NEE with MIS, BSDF sampling,
     Russian roulette after `rr_start`. The count (an int64 scalar) is the
@@ -139,9 +142,11 @@ def path_radiance(scene, rays, sampler, pixel_idx, sample_idx, intersect_fn,
     (``compact_step``). Each lane draws from (pixel, sample, bounce) and
     banks its emission and NEE separately onto its original row, so with
     the roulette keeping every block (p = 1) each lane's radiance is the
-    masked loop's. audit ignores the schedule."""
+    masked loop's. resort sorts the lanes' blocks at each bounce from the
+    second on, where the schedule (or, without one, the batch) keeps every
+    lane (``compact_step``). audit ignores the schedule and resort."""
     if audit:
-        shrink_schedule = None
+        shrink_schedule, resort = None, False
     n = rays.origin.shape[0]
     dev = rays.origin.device
     folded = nee_mode == "folded" and use_nee and scene.num_lights > 0
@@ -156,11 +161,11 @@ def path_radiance(scene, rays, sampler, pixel_idx, sample_idx, intersect_fn,
     pix, sid, orig, bank = pixel_idx, sample_idx, None, _add
 
     for bounce in range(max_depth):
-        if shrink_schedule is not None:
+        if shrink_schedule is not None or resort:
             (rays, beta, pix, sid, orig, specular, alive, pend,
              bank) = compact_step(shrink_schedule, bounce, n, sampler, rays,
                                   beta, pix, sid, orig, specular, alive, pend,
-                                  bank)
+                                  bank, resort)
         in_rays, alive_in = rays, alive
         (radiance, rays, beta, alive, specular, pend, traced,
          seen) = _bounce(scene, sampler, pix, sid, bounce, rays, radiance,
@@ -482,23 +487,29 @@ def block_bank(orig, n):
 
 
 def compact_step(schedule, bounce, n, sampler, rays, beta, pix, sid, orig,
-                 specular, alive, pend, bank):
+                 specular, alive, pend, bank, resort=False):
     """The shrink before bounce `bounce` of an n-lane batch: where
     schedule[bounce], in whole COMPACT_BLOCK blocks, is below the lanes in
     hand, ``block_compact`` on the lanes' DIM_COMPACT draws, and a bank
     that adds the kept lanes' contributions onto their original rows
-    (``block_bank``). orig None is the identity layout (nothing compacted
-    yet); pend None carries no pending. Returns (rays, beta, pix, sid,
-    orig, specular, alive, pend, bank), as given where nothing shrinks."""
+    (``block_bank``). resort: at bounce >= 1 also where nothing shrinks,
+    ``block_compact`` to the lanes in hand, a pure permutation into the
+    blocks' spatial order (pbrs_tpu/integrators/wavefront.py:657-661);
+    schedule None then keeps all n lanes. orig None is the identity layout
+    (nothing moved yet); pend None carries no pending. Returns (rays, beta,
+    pix, sid, orig, specular, alive, pend, bank), as given where nothing
+    moves."""
     G = COMPACT_BLOCK
-    assert schedule[0] >= n and n % G == 0, (
+    head = n if schedule is None else schedule[0]
+    assert head >= n and n % G == 0, (
         f"the compacting loop moves lanes in {G}-lane blocks from a "
-        f"schedule measured at {n} lanes; got {schedule[0]} for {n}: use "
-        f"the masked loop")
-    cap = min(schedule[bounce], n)
+        f"schedule measured at {n} lanes; got {head} for {n}: use the "
+        f"masked loop")
+    cap = n if schedule is None else min(schedule[bounce], n)
     cap -= cap % G
-    if cap >= rays.n:
+    if cap >= rays.n and not (resort and bounce > 0):
         return rays, beta, pix, sid, orig, specular, alive, pend, bank
+    cap = min(cap, rays.n)
     if orig is None:
         dev = rays.origin.device
         pix = torch.as_tensor(pix, device=dev).to(torch.int32)
@@ -516,18 +527,18 @@ def compact_step(schedule, bounce, n, sampler, rays, beta, pix, sid, orig,
 def render_samples(scene, sampler, pixel_idx, sample_idx, intersect_fn,
                    occlude_fn, max_depth=5, msaa=2, nee_mode="twoarm",
                    use_nee=True, filter_table=None, audit=False,
-                   shrink_schedule=None):
+                   shrink_schedule=None, resort=False):
     """Camera rays + path integration for a (pixel, sample) batch:
     (radiance [N,3], traced-ray count), plus the audit counts with
     audit=True. A weighted filter scales each sample's radiance by its
     signed filter weight. shrink_schedule compacts the lanes between
-    bounces (``path_radiance``)."""
+    bounces and resort sorts them (``path_radiance``)."""
     rays, weight = camera_rays_weighted(scene, sampler, pixel_idx,
                                         sample_idx, msaa, filter_table)
     out = path_radiance(scene, rays, sampler, pixel_idx, sample_idx,
                         intersect_fn, occlude_fn, max_depth=max_depth,
                         nee_mode=nee_mode, use_nee=use_nee, audit=audit,
-                        shrink_schedule=shrink_schedule)
+                        shrink_schedule=shrink_schedule, resort=resort)
     if weight is None:
         return out
     return (out[0] * weight[..., None],) + tuple(out[1:])

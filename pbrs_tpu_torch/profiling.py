@@ -20,16 +20,115 @@ for Cornell, K3 for plates), also each of that kernel's launches in sample
 0, replayed: its live lanes and device ms, and their sum a sample, drawing
 PCG and Sobol'. Prints one JSON line per route, with the card's name. CUDA
 only.
+
+Also the JAX package's two profiler hooks (pbrs_tpu/profiling.py):
+``profile_phases``, the device ms of one launch of each phase run on its
+own (camera rays, closest hit, shadow any hit, one bounce, the full path;
+``render_image``'s CLI prints them with --phase_timings), and
+``profiler_trace``, a torch.profiler window written as a Chrome trace
+(``render_image(profile_dir=)``, --profile_dir).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
 import time
 
+import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def profiler_trace(profile_dir: str | None):
+    """A torch.profiler window (host ops, and the card's kernels where
+    there is a card) written on exit as a Chrome trace,
+    ``<profile_dir>/trace_<pid>_<ns>.json``; a no-op when profile_dir is
+    falsy."""
+    if not profile_dir:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        profile_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def _time_ms(fn, *args, iters=3, cuda=False):
+    """Median ms of fn(*args) after one warm-up call: CUDA events on the
+    card (cuda=True), the host's clock elsewhere."""
+    fn(*args)
+    times = []
+    for _ in range(iters):
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def profile_phases(scene, n_pixels: int = 1 << 20, max_depth: int = 5,
+                   seed: int = 0, device="cuda", iters: int = 3) -> dict:
+    """Per-phase device timings, ms a launch of `n_pixels` lanes, with
+    pbrs_tpu.profiling.profile_phases' keys: raygen (camera rays), trace
+    (closest hit) and occlude (shadow any hit) of those rays through the
+    kernels, bounce1 (one whole bounce of the general path: trace, shade,
+    NEE) and full (max_depth bounces); shade_nee_ms = bounce1 - trace -
+    occlude; Mrays/s of trace and occlude. Each phase runs on its own, so
+    the numbers do not decompose a render."""
+    from .accel import dispatch
+    from .core import sampler as smp
+    from .integrators import wavefront
+
+    scene = scene.to(device)
+    dev = scene.device
+    n = scene.camera.width * scene.camera.height
+    pix = torch.arange(n_pixels, dtype=torch.int32, device=dev) % n
+    sid = torch.zeros((), dtype=torch.int32, device=dev)
+    sampler = smp.PCGSampler(seed)
+    isect_fn, occl_fn = dispatch.make_trace_fns(scene, True)
+
+    def raygen(p, s):
+        return wavefront.camera_rays(scene, sampler, p, s, 1)
+
+    rays = raygen(pix, sid)
+
+    def bounce(depth):
+        def run(p, s):
+            return wavefront.path_radiance(scene, raygen(p, s), sampler, p,
+                                           s, isect_fn, occl_fn,
+                                           max_depth=depth)
+        return run
+
+    kw = {"iters": iters, "cuda": dev.type == "cuda"}
+    out = {"lanes": int(n_pixels)}
+    out["raygen_ms"] = _time_ms(raygen, pix, sid, **kw)
+    out["trace_ms"] = _time_ms(isect_fn, rays, **kw)
+    out["occlude_ms"] = _time_ms(occl_fn, rays, **kw)
+    out["bounce1_ms"] = _time_ms(bounce(1), pix, sid, **kw)
+    out["full_ms"] = _time_ms(bounce(max_depth), pix, sid, **kw)
+    out["shade_nee_ms"] = round(
+        max(out["bounce1_ms"] - out["trace_ms"] - out["occlude_ms"], 0.0), 3)
+    out["trace_mrays_s"] = round(n_pixels / out["trace_ms"] / 1e3, 2)
+    out["occlude_mrays_s"] = round(n_pixels / out["occlude_ms"] / 1e3, 2)
+    for k in ("raygen_ms", "trace_ms", "occlude_ms", "bounce1_ms", "full_ms"):
+        out[k] = round(out[k], 3)
+    return out
 
 
 def _device_us(evt):

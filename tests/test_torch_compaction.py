@@ -5,7 +5,9 @@ pbrs_tpu's compacting loop and the port's masked loop with equal
 traced-segment counts, the path_radiance gating (audit, a schedule that
 shrinks nothing, a batch that does not tile), the compacted wave loop
 against the masked one (mesh_ball, and
-fourier_plastic under the Fourier override), render_image(compact=) and
+fourier_plastic under the Fourier override), the sort-only resort pass
+against the masked loops bit for bit and against pbrs_tpu's resort
+(tests/test_compaction.py:133-186), render_image(compact=) and
 --compact."""
 
 import numpy as np
@@ -239,10 +241,85 @@ def test_compacted_wave_loop(mesh, name):
     assert int(cnt) == int(cnt_m)
 
 
+def _spy_compact(monkeypatch):
+    """[(lanes in, capacity, whether the kept blocks were reordered)] of
+    every block_compact call."""
+    calls = []
+    compact = twf.block_compact
+
+    def spy(rays, *a, **k):
+        out = compact(rays, *a, **k)
+        orig = out[4].view(-1, twf.COMPACT_BLOCK)[:, 0]
+        calls.append((rays.n, a[6], bool((orig[1:] < orig[:-1]).any())))
+        return out
+
+    monkeypatch.setattr(twf, "block_compact", spy)
+    return calls
+
+
+@pytest.mark.parametrize("nee_mode", ["twoarm", "folded"])
+def test_resort_general_path(mesh, monkeypatch, nee_mode):
+    """Resort (a sort-only pass at each bounce from the second on, every
+    block kept): the port's general loop equals its masked loop bit for
+    bit with an equal traced-segment count, alone and on a shrinking
+    schedule, and equals pbrs_tpu's resort render per lane
+    with an equal count."""
+    jscene, tscene, (ji, jo), (ti, to) = mesh
+    n = SIZE * SIZE
+    sampler = tsmp.PCGSampler(SEED)
+    calls = _spy_compact(monkeypatch)
+
+    def run(**kw):
+        rad, cnt = twf.render_samples(tscene, sampler,
+                                      torch.from_numpy(_pix(n)), 0, ti, to,
+                                      max_depth=DEPTH, nee_mode=nee_mode,
+                                      **kw)
+        return rad.numpy(), int(cnt)
+
+    masked, cnt_m = run()
+    assert calls == []
+    got, cnt = run(resort=True)
+    assert [c[:2] for c in calls] == [(n, n)] * (DEPTH - 1)
+    assert all(c[2] for c in calls)  # the blocks did move
+    np.testing.assert_array_equal(got, masked)
+    assert cnt == cnt_m
+    sched = _schedule(tscene, ti, n, nee_mode)
+    shrunk, cnt_s = run(resort=True, shrink_schedule=sched)
+    np.testing.assert_array_equal(shrunk, masked)
+    assert cnt_s == cnt_m
+    want, cnt_j = jwf.render_samples(
+        jscene, jsmp.PCGSampler(SEED), jnp.asarray(_pix(n)),
+        jnp.zeros(n, jnp.int32), max_depth=DEPTH, msaa=2, intersect_fn=ji,
+        occlude_fn=jo, return_ray_count=True, nee_mode=nee_mode,
+        resort=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=RTOL)
+    assert cnt == int(cnt_j)
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_resort_wave_loop(mesh, monkeypatch, folded):
+    """The wave loop's resort (K4's plain version) equals its masked loop
+    bit for bit with an equal traced-segment count, two-arm and folded."""
+    tscene = mesh[1]
+    n = SIZE * SIZE
+    integ = fw.FusedWaveIntegrator(tscene, folded=folded)
+    sampler = tsmp.PCGSampler(SEED)
+    pix = torch.from_numpy(_pix(n))
+    want, cnt_m = integ.render_samples(sampler, pix, 0, max_depth=DEPTH)
+    calls = _spy_compact(monkeypatch)
+    got, cnt = integ.render_samples(sampler, pix, 0, max_depth=DEPTH,
+                                    resort=True)
+    assert [c[:2] for c in calls] == [(n, n)] * (DEPTH - 1)
+    assert want.sum() > 0
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert int(cnt) == int(cnt_m)
+
+
 def test_render_image_compact(mesh, monkeypatch):
     """render_image(compact=True) on the CPU: the general path compacts
     every launch to the pilot's schedule and the image and traced rays
-    equal compact=False's; "auto" is off. (auto_schedule's default floor
+    equal compact=False's; "auto" does not compact on the CPU (the tuner
+    runs on the card only). (auto_schedule's default floor
     of 16384 lanes would not shrink a frame this small: the test lowers
     it to 16.)"""
     auto_schedule = twf.auto_schedule

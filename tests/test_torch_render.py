@@ -75,12 +75,16 @@ def test_cli_writes_exr(tmp_path, capsys):
     assert "plain path on cpu" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--phase_timings"],
-                                  ["--trace_mode", "onehot"],
-                                  ["--profile_dir", "prof"],
-                                  ["--trace_mode", "rowdense"]])
-def test_cli_refuses_unported(argv):
-    with pytest.raises(SystemExit, match="not yet ported"):
+@pytest.mark.parametrize("argv,match", [
+    (["--scene_name", "no_such_scene"], "not yet ported"),
+    (["--no_such_flag"], "not yet ported"),
+    (["--trace_mode", "rowdense"], "TPU treelet fetch variant"),
+    (["--trace_mode", "rowdynh"], "TPU treelet fetch variant")])
+def test_cli_refuses_unported(argv, match):
+    """Every flag of pbrs_tpu's CLI is ported (tests/test_torch_profiling.py
+    parses each); a preset or flag the port lacks, and the JAX package's
+    TPU treelet fetch variants, are refused."""
+    with pytest.raises(SystemExit, match=match):
         cli.main(argv)
 
 
@@ -108,9 +112,9 @@ def test_card_is_the_default(monkeypatch):
 
 def test_unported_integrator_and_route_raise():
     """Every integrator, sampler, NEE mode and compaction setting of
-    pbrs_tpu is ported; an unknown one, an unknown route, and the options
-    still unported (the profiler trace, the treelet trace modes) are
-    refused."""
+    pbrs_tpu is ported; an unknown one, an unknown route, and the
+    reference's options with no counterpart (the treelet trace modes,
+    use_pallas: routes take its place) are refused."""
     scene = cli.with_resolution(presets.cornell_box(), 8, 8)
     for kw, what in (({"integrator": "bdpt"}, "integrator"),
                      ({"route": "fast"}, "route"),
@@ -119,6 +123,6 @@ def test_unported_integrator_and_route_raise():
                      ({"compact": "sometimes"}, "compact")):
         with pytest.raises(ValueError, match=what):
             render.render_image(scene, device="cpu", **kw)
-    for kw in ({"profile_dir": "prof"}, {"trace_mode": "rowdense"}):
+    for kw in ({"use_pallas": False}, {"trace_mode": "rowdense"}):
         with pytest.raises(TypeError):
             render.render_image(scene, device="cpu", **kw)
