@@ -40,8 +40,17 @@ winner, a cache hit, render_image at its defaults taking the winner's
 kernels to the image of the winner's route pinned through
 make_integrator bit for bit, and a non-finite candidate raising; and the
 CLI's --phase_timings and --profile_dir on Cornell, whose trace names
-K2's kernel (phase 32). Phases that hold a route pin render_image's
-compact and nee_mode, so the tuner does not move them. Every
+K2's kernel (phase 32). Then the sharded renderer on 2 ranks sharing
+the card through gloo (phase 33): Cornell 1024^2, depth 8, spp 4 through
+render_image_sharded (K1) at dp1xsp1, dp2xsp1 and dp1xsp2, and
+render_batch_sharded through K2 on Cornell and through K4 (+ K1, K5) on
+the interior 1024^2, depth 5, at dp1xsp1 and dp2xsp1, the dp layouts
+bit-equal to dp1xsp1 and the sp layout within atol 2e-5 / rtol 1e-4; and
+the persistent wavefront (phase 34) on Cornell 1024^2, depth 8 (pools of
+N and N/4 lanes) and mesh_ball 800x608, depth 6 (N/4), each against the
+masked general path per lane with no more traced rays. Phases that hold
+a route pin render_image's compact and nee_mode, so the tuner does not
+move them. Every
 phase prints one line or more; a failing phase raises, so the script
 exits non-zero.
 There is no CPU path: without a CUDA device the script fails. The line
@@ -3180,6 +3189,168 @@ def phase_profiler(dev, smi):
                              "are missing")
 
 
+SHARDED_RANKS = 2  # ranks of phase 33, sharing the one card (gloo)
+
+
+def sharded_jobs():
+    """Phase 33's jobs (bench_multichip.layout_rank): Cornell 1024^2, depth
+    8, spp 4 through render_image_sharded (general path, K1) at dp1xsp1
+    (rank 0 alone), dp2xsp1 and dp1xsp2; render_batch_sharded of 4 sample
+    indices with K2 on Cornell (depth 8) and with K4 on the interior
+    1024^2 (depth 5, K1 + K5 tracing), each at dp1xsp1 and dp2xsp1."""
+    jobs = [{"scene": "cornell", "dp": dp, "sp": sp, "depth": DEPTH,
+             "spp": MSAA * MSAA} for dp, sp in ((1, 1), (2, 1), (1, 2))]
+    for scene, kind, depth in (("cornell", "fused_diffuse", DEPTH),
+                               ("interior", "fused_wave", 5)):
+        jobs += [{"scene": scene, "dp": dp, "sp": 1, "depth": depth,
+                  "samples": MSAA * MSAA, "integrator": kind}
+                 for dp in (1, 2)]
+    return jobs
+
+
+def phase_sharded(dev, smi):
+    """Phase 33, the sharded renderer (parallel.py) on 2 ranks sharing the
+    card (gloo; NCCL refuses two ranks on one GPU), every job of
+    sharded_jobs() in one spawn, each rendered once to warm up and once
+    timed. dp layouts must equal dp1xsp1 bit for bit and dp1xsp2 within
+    atol 2e-5 / rtol 1e-4; each row prints in bench_multichip's format.
+    Returns every kernel's launches over all ranks and renders."""
+    from pbrs_tpu_torch import parallel
+    from pbrs_tpu_torch.scene import buffers
+    from pbrs_tpu_torch.tools import bench_multichip as bm
+
+    scenes = {"cornell": buffers.scene_to_arrays(cornell(SIZE)),
+              "interior": buffers.scene_to_arrays(interior(SIZE, SIZE))}
+    jobs = sharded_jobs()
+    backend = parallel.choose_backend("cuda", SHARDED_RANKS,
+                                      torch.cuda.device_count())
+    t0 = time.time()
+    res = parallel.run_ranks(bm.layout_rank, SHARDED_RANKS, scenes, jobs, 1,
+                             device="cuda")
+    spawn_s = time.time() - t0
+    runs = res[0]["runs"]
+    when = time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+    total = {}
+    base = {}
+    failures = []
+    for i, (job, run) in enumerate(zip(jobs, runs)):
+        launches = {}
+        for r in res:
+            for k, v in r["runs"][i]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+                total[k] = total.get(k, 0) + v
+        what = job.get("integrator") or "render_image_sharded"
+        key = (job["scene"], what)
+        out = run["out"]
+        if job["dp"] * job["sp"] == 1:
+            base[key] = (out, run["seconds"])
+        ref, t1 = base[key]
+        row = {"config": f"{job['scene']}_{SIZE}x{SIZE}_depth{job['depth']}_"
+                         f"{what}",
+               "devices": job["dp"] * job["sp"],
+               "layout": f"dp{job['dp']}xsp{job['sp']}",
+               "wall_s": run["seconds"],
+               "overhead_ratio": run["seconds"] / t1,
+               "checksum": float(np.abs(out).sum()), "device": smi,
+               "measured_at": when}
+        if job["sp"] > 1:
+            bad = int((~np.isclose(out, ref, atol=ATOL, rtol=RTOL)).sum())
+            parity = f"vs dp1xsp1: {bad} values outside atol/rtol"
+        else:
+            bad = int((out != ref).sum())
+            parity = f"vs dp1xsp1: {bad} values not bit-equal"
+        print(f"phase 33 {json.dumps(row)} {parity}; launches {launches}")
+        needs = {"render_image_sharded": ("trace_flat",),
+                 "fused_diffuse": ("fused_bounce",),
+                 "fused_wave": ("fused_wave", "trace_flat", "trace_bvh")}
+        if (bad or not np.isfinite(out).all() or float(out.mean()) <= 0
+                or any(not launches.get(k) for k in needs[what])):
+            failures.append(row["config"] + " " + row["layout"])
+    print(f"phase 33 sharded: {SHARDED_RANKS} ranks on one card, backend "
+          f"{backend}; spawn and all renders {spawn_s:.1f} s; launches over "
+          f"all ranks {total} [{smi}]")
+    if backend != "gloo" or failures:
+        raise AssertionError(f"sharded renders failed: {failures}")
+    return total
+
+
+def phase_persistent(dev, smi):
+    """Phase 34, the persistent wavefront (integrators/persistent.py)
+    through dispatch.make_trace_fns: Cornell 1024^2, depth 8, sample 0 of
+    every pixel on a pool of N and N/4 lanes (K1), and mesh_ball 800x608,
+    depth 6, on N/4 lanes (K1 + K5), each against the masked general path
+    on the same tracers (rtol 1e-5, atol 1e-5: tests/test_persistent.py)
+    with no more traced rays than 1.01x the masked loop's. Prints wall
+    time (one synchronized run after a masked warm-up), iterations and ray
+    counts. Returns the launches of the persistent runs."""
+    from pbrs_tpu_torch.accel import dispatch
+    from pbrs_tpu_torch.integrators import persistent, wavefront
+
+    counters = launch_counts()
+    total = {}
+    failures = []
+    for label, scene, depth, pools in (
+            ("cornell", cornell(SIZE), DEPTH, (1, 4)),
+            ("mesh_ball", bench_scene("mesh_ball"), MESH_DEPTH, (4,))):
+        scene = scene.to(dev)
+        w, h = scene.camera.width, scene.camera.height
+        n = w * h
+        pix = torch.arange(n, dtype=torch.int32, device=dev)
+        samp = torch.zeros(n, dtype=torch.int32, device=dev)
+        isect, occl = dispatch.make_trace_fns(scene)
+        sampler = sampler_of("pcg")
+
+        def masked():
+            return wavefront.render_samples(scene, sampler, pix, samp, isect,
+                                            occl, max_depth=depth, msaa=MSAA)
+
+        masked()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want, want_count = masked()
+        torch.cuda.synchronize()
+        masked_ms = (time.time() - t0) * 1e3
+        for div in pools:
+            calls = [0]
+
+            def counting(rays):
+                calls[0] += 1
+                return isect(rays)
+
+            for m in counters.values():
+                m.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            got, count = persistent.render_tasks_persistent(
+                scene, sampler, pix, samp, n_lanes=n // div,
+                max_depth=depth, msaa=MSAA, intersect_fn=counting,
+                occlude_fn=occl, return_ray_count=True)
+            torch.cuda.synchronize()
+            ms = (time.time() - t0) * 1e3
+            launches = {k: m.LAUNCHES for k, m in counters.items()
+                        if m.LAUNCHES}
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            bad = int((~torch.isclose(got, want, rtol=1e-5, atol=1e-5))
+                      .any(dim=1).sum())
+            ratio = float(count) / int(want_count)
+            print(f"phase 34 persistent {label} {w}x{h} depth {depth}, "
+                  f"{n // div} lanes for {n} tasks: {ms:.2f} ms ({calls[0]} "
+                  f"iterations) vs masked {masked_ms:.2f} ms; traced rays "
+                  f"{float(count):.0f} vs masked {int(want_count)} "
+                  f"({ratio:.4f}x); lanes outside rtol/atol 1e-5: {bad}; "
+                  f"checksum {float(got.sum()):.6e} vs "
+                  f"{float(want.sum()):.6e}; launches {launches} [{smi}]")
+            if (bad or ratio > 1.01 or not torch.isfinite(got).all()
+                    or not launches.get("trace_flat")
+                    or (label == "mesh_ball"
+                        and not launches.get("trace_bvh"))):
+                failures.append(f"{label} {n // div} lanes")
+    if failures:
+        raise AssertionError(f"persistent runs failed: {failures}")
+    return total
+
+
 def kernel_entry(name, source, replaces, launches, report):
     return {"name": name, "route": "cuda",
             "source": f"pbrs_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -3252,6 +3423,8 @@ def main():
     compact_launches = run(phase_compaction, dev, smi)
     tuned_rows = run(phase_tuner, dev, smi)
     run(phase_profiler, dev, smi)
+    sharded_launches = run(phase_sharded, dev, smi)
+    persistent_launches = run(phase_persistent, dev, smi)
     slice_launches = {k: fourier_launches.get(k, 0)
                       + compact_launches.get(k, 0)
                       for k in ("trace_flat", "trace_bvh", "fused_wave")}
@@ -3296,6 +3469,11 @@ def main():
         if entry["name"] in tuned_launches:
             # Launches of phase 31's renders through the tuned route auto.
             entry["tuned_launches"] = tuned_launches[entry["name"]]
+        # Launches of phase 33's sharded renders (both ranks) and of phase
+        # 34's persistent loops; 0 for a kernel they do not reach.
+        entry["sharded_launches"] = sharded_launches.get(entry["name"], 0)
+        entry["persistent_launches"] = persistent_launches.get(
+            entry["name"], 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -60,10 +60,12 @@ FILE_SECONDS = {
     "test_torch_trace.py": 64.7,
     "test_torch_fused.py": 56.4,
     "test_bxdf.py": 49.2,
+    "test_torch_parallel.py": 50.0,
     "test_torch_instanced.py": 48.8,
     "test_torch_mesh.py": 44.5,
     "test_torch_sobol_kernels.py": 44.3,
     "test_torch_env.py": 41.2,
+    "test_torch_persistent.py": 37.3,
     "test_partition.py": 34.3,
     "test_torch_sobol.py": 32.1,
     "test_torch_trace_layout.py": 28.8,
