@@ -1,0 +1,8 @@
+"""k4_roofline: the bound time of kernels/k4.json's work over its device
+time in the traced stretch, in percent (counts.py)."""
+
+from portbench import counts
+
+
+def read(rec, cell):
+    return counts.roofline_pct(rec, cell.root, "k4")
