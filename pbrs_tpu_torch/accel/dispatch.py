@@ -13,6 +13,7 @@ through a Tracer of their own -- and merged by the closer hit.
 
 from __future__ import annotations
 
+from .. import profiling
 from ..shapes import intersect as isect_mod
 from . import instanced as inst_mod
 from . import trace_kernel as tk
@@ -31,11 +32,19 @@ def trace_geometry(scene):
     return geom, tuple(g for g in groups if not inst_mod.flattenable(g))
 
 
+def _spanned(name, fn):
+    def run(rays):
+        with profiling.span(name):
+            return fn(rays)
+    return run
+
+
 def make_trace_fns(scene, use_kernels: bool = True,
                    bvh_threshold: int | None = None):
     """(intersect_fn, occlude_fn) for the scene geometry, instance groups
-    included; bvh_threshold overrides the family size above which K5 takes
-    a family."""
+    included, each call a ``pbrs.trace`` / ``pbrs.occlude`` span;
+    bvh_threshold overrides the family size above which K5 takes a
+    family."""
     geom, groups = trace_geometry(scene)
     if not use_kernels:
         def base_isect(rays):
@@ -52,7 +61,8 @@ def make_trace_fns(scene, use_kernels: bool = True,
 
         base_occl = tracer.occluded
     if not groups:
-        return base_isect, base_occl
+        return (_spanned("pbrs.trace", base_isect),
+                _spanned("pbrs.occlude", base_occl))
 
     group_fns = []
     for grp in groups:
@@ -78,4 +88,5 @@ def make_trace_fns(scene, use_kernels: bool = True,
             blocked = blocked | inst_mod.occluded_group(grp, rays, o_fn)
         return blocked
 
-    return intersect_fn, occlude_fn
+    return (_spanned("pbrs.trace", intersect_fn),
+            _spanned("pbrs.occlude", occlude_fn))

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, profiling
 from ..bxdf import lobes as lb
 from ..core import sampler as smp
 from ..geometry import ray as ray_mod
@@ -572,10 +572,12 @@ class FusedDiffuseIntegrator:
         radiance = torch.zeros(3, n, device=dev)
         count = torch.zeros(1, dtype=torch.int64, device=dev)
         for b in range(max_depth):
-            fout, alive = bounce(
-                self.tables, fin, alive, pix, samp, count, seed=sampler.seed,
-                bounce=b, bounce_is_first=(b == 0), rr_active=(b > rr_start),
-                rng=rng)
-            radiance = radiance + fout[0:3]
-            fin = fout[3:]  # next origin, dir, beta: a contiguous view
+            with profiling.span("pbrs.bounce"):
+                profiling.count_lanes(alive, n)
+                fout, alive = bounce(
+                    self.tables, fin, alive, pix, samp, count,
+                    seed=sampler.seed, bounce=b, bounce_is_first=(b == 0),
+                    rr_active=(b > rr_start), rng=rng)
+                radiance = radiance + fout[0:3]
+                fin = fout[3:]  # next origin, dir, beta: a contiguous view
         return radiance.T, count[0]

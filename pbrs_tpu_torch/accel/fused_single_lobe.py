@@ -28,7 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, profiling
 from ..bxdf import fresnel as frs
 from ..bxdf import lobes as lb
 from ..bxdf import microfacet as mfm
@@ -1390,10 +1390,12 @@ class FusedSingleLobeIntegrator:
         radiance = torch.zeros(3, n, device=dev)
         count = torch.zeros(1, dtype=torch.int64, device=dev)
         for b in range(max_depth):
-            fout, alive, spec = bounce2(
-                self.tables, fin, alive, spec, pix, samp, count,
-                seed=sampler.seed, bounce=b, bounce_is_first=(b == 0),
-                rr_active=(b > rr_start), rng=rng)
-            radiance = radiance + fout[0:3]
-            fin = fout[3:]  # next origin, dir, beta: a contiguous view
+            with profiling.span("pbrs.bounce"):
+                profiling.count_lanes(alive, n)
+                fout, alive, spec = bounce2(
+                    self.tables, fin, alive, spec, pix, samp, count,
+                    seed=sampler.seed, bounce=b, bounce_is_first=(b == 0),
+                    rr_active=(b > rr_start), rng=rng)
+                radiance = radiance + fout[0:3]
+                fin = fout[3:]  # next origin, dir, beta: a contiguous view
         return radiance.T, count[0]

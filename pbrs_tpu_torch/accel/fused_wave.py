@@ -52,7 +52,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, profiling
 from ..bxdf import bsdf as bsdf_mod
 from ..bxdf import lobes as lb
 from ..core import sampler as smp
@@ -802,26 +802,30 @@ class FusedWaveIntegrator:
         pend = None
         orig, bank = None, wavefront._add
         for bounce in range(max_depth):
-            if schedule is not None or resort:
-                (rays, beta3, pix, samp, orig, spec_b, alive_b, pend,
-                 bank) = wavefront.compact_step(
-                    schedule, bounce, n, sampler, rays, beta.T, pix, samp,
-                    orig, spec > 0, alive > 0, pend, bank, resort)
-                beta = beta3.T.contiguous()
-                alive, spec = alive_b.to(torch.int32), spec_b.to(torch.int32)
-            count += (rays.t_max > 0.0).sum()
-            hit, env_here, p_env, fout, iout = self._shade_pass(
-                sampler, rays, pix, samp, beta, alive, spec, bounce,
-                rr_start, count)
-            t_next = torch.where(iout[0] > 0, INF, 0.0)
-            if self.folded:
-                radiance, pend, t_next = self._apply_folded(
-                    radiance, hit, fout, env_here, p_env, pend, t_next, bank)
-            else:
-                radiance = self._apply(radiance, hit, fout, bank)
-            rays = self._next_rays(hit, fout, t_next)
-            beta = fout[27:30]
-            alive, spec = iout[0], iout[1]
+            with profiling.span("pbrs.bounce"):
+                if schedule is not None or resort:
+                    (rays, beta3, pix, samp, orig, spec_b, alive_b, pend,
+                     bank) = wavefront.compact_step(
+                        schedule, bounce, n, sampler, rays, beta.T, pix,
+                        samp, orig, spec > 0, alive > 0, pend, bank, resort)
+                    beta = beta3.T.contiguous()
+                    alive = alive_b.to(torch.int32)
+                    spec = spec_b.to(torch.int32)
+                profiling.count_lanes(alive, rays.n)
+                count += (rays.t_max > 0.0).sum()
+                hit, env_here, p_env, fout, iout = self._shade_pass(
+                    sampler, rays, pix, samp, beta, alive, spec, bounce,
+                    rr_start, count)
+                t_next = torch.where(iout[0] > 0, INF, 0.0)
+                if self.folded:
+                    radiance, pend, t_next = self._apply_folded(
+                        radiance, hit, fout, env_here, p_env, pend, t_next,
+                        bank)
+                else:
+                    radiance = self._apply(radiance, hit, fout, bank)
+                rays = self._next_rays(hit, fout, t_next)
+                beta = fout[27:30]
+                alive, spec = iout[0], iout[1]
         if self.folded and pend is not None:
             radiance = self._epilogue(pend, rays, radiance, count, bank)
         return radiance, count[0]

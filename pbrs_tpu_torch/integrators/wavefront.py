@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import profiling
 from ..bxdf import bsdf as bsdf_mod
 from ..core import filters as flt
 from ..core import sampler as smp
@@ -49,18 +50,19 @@ def camera_rays_weighted(scene, sampler, pixel_idx, sample_idx, msaa,
     """(rays, weight): weight is None without a filter or for a
     non-negative one, else each sample's signed filter weight [N]
     (weighted filter importance sampling, core/filters.py)."""
-    row, col = cam_mod.pixel_coords(scene.camera, pixel_idx)
-    dx, dy = smp.stratified_jitter(sampler, pixel_idx, sample_idx, msaa)
-    weight = None
-    if filter_table is not None:
-        ox, wx = flt.sample_filter_offset(filter_table, dx)
-        oy, wy = flt.sample_filter_offset(filter_table, dy)
-        dx = 0.5 + ox
-        dy = 0.5 + oy
-        if wx is not None:
-            weight = wx * wy
-    rays = cam_mod.shoot_rays(scene.camera, row, col,
-                              torch.stack([dx, dy], dim=-1))
+    with profiling.span("pbrs.camera_rays"):
+        row, col = cam_mod.pixel_coords(scene.camera, pixel_idx)
+        dx, dy = smp.stratified_jitter(sampler, pixel_idx, sample_idx, msaa)
+        weight = None
+        if filter_table is not None:
+            ox, wx = flt.sample_filter_offset(filter_table, dx)
+            oy, wy = flt.sample_filter_offset(filter_table, dy)
+            dx = 0.5 + ox
+            dy = 0.5 + oy
+            if wx is not None:
+                weight = wx * wy
+        rays = cam_mod.shoot_rays(scene.camera, row, col,
+                                  torch.stack([dx, dy], dim=-1))
     return rays, weight
 
 
@@ -161,22 +163,25 @@ def path_radiance(scene, rays, sampler, pixel_idx, sample_idx, intersect_fn,
     pix, sid, orig, bank = pixel_idx, sample_idx, None, _add
 
     for bounce in range(max_depth):
-        if shrink_schedule is not None or resort:
-            (rays, beta, pix, sid, orig, specular, alive, pend,
-             bank) = compact_step(shrink_schedule, bounce, n, sampler, rays,
-                                  beta, pix, sid, orig, specular, alive, pend,
-                                  bank, resort)
-        in_rays, alive_in = rays, alive
-        (radiance, rays, beta, alive, specular, pend, traced,
-         seen) = _bounce(scene, sampler, pix, sid, bounce, rays, radiance,
-                         beta, alive, specular, pend, bank, intersect_fn,
-                         occlude_fn, env_eval, folded, use_nee, rr_start)
-        ray_count = ray_count + traced
-        if audit:
-            counts = counts + aud_mod.audit_bounce(
-                in_rays, seen["hit"], seen["frame"], radiance, beta,
-                seen["f"], seen["wi"], seen["pdf"], alive_in,
-                lobes=seen["lobes"], emit=seen["emit"])
+        with profiling.span("pbrs.bounce"):
+            if shrink_schedule is not None or resort:
+                (rays, beta, pix, sid, orig, specular, alive, pend,
+                 bank) = compact_step(shrink_schedule, bounce, n, sampler,
+                                      rays, beta, pix, sid, orig, specular,
+                                      alive, pend, bank, resort)
+            profiling.count_lanes(alive, rays.n)
+            in_rays, alive_in = rays, alive
+            (radiance, rays, beta, alive, specular, pend, traced,
+             seen) = _bounce(scene, sampler, pix, sid, bounce, rays,
+                             radiance, beta, alive, specular, pend, bank,
+                             intersect_fn, occlude_fn, env_eval, folded,
+                             use_nee, rr_start)
+            ray_count = ray_count + traced
+            if audit:
+                counts = counts + aud_mod.audit_bounce(
+                    in_rays, seen["hit"], seen["frame"], radiance, beta,
+                    seen["f"], seen["wi"], seen["pdf"], alive_in,
+                    lobes=seen["lobes"], emit=seen["emit"])
 
     if folded:
         radiance, traced = _epilogue(pend, rays, radiance, bank,

@@ -30,6 +30,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 from torch.distributed.device_mesh import DeviceMesh
 
+from . import profiling
 from .accel import dispatch as trace_dispatch
 from .core import sampler as smp
 from .integrators import wavefront
@@ -205,14 +206,17 @@ def render_batch_sharded(scene, sampler, pixel_idx, sample_base: int,
 
     acc = torch.zeros(block, 3, device=pix.device)
     for i in range(per_shard):
-        acc = acc + render_one(sample_base + sp_idx * per_shard + i)
+        with profiling.span("pbrs.pass"):
+            acc = acc + render_one(sample_base + sp_idx * per_shard + i)
     if n_sp > 1:
-        dist.all_reduce(acc, group=mesh.get_group("sp"))
+        with profiling.span("pbrs.all_reduce"):
+            dist.all_reduce(acc, group=mesh.get_group("sp"))
     if n_dp == 1:
         return acc
     film = torch.zeros(n, 3, device=pix.device)
     film[dp_idx * block:(dp_idx + 1) * block] = acc
-    dist.all_reduce(film, group=mesh.get_group("dp"))
+    with profiling.span("pbrs.all_reduce"):
+        dist.all_reduce(film, group=mesh.get_group("dp"))
     return film
 
 

@@ -27,6 +27,14 @@ own (camera rays, closest hit, shadow any hit, one bounce, the full path;
 ``render_image``'s CLI prints them with --phase_timings), and
 ``profiler_trace``, a torch.profiler window written as a Chrome trace
 (``render_image(profile_dir=)``, --profile_dir).
+
+And the program's recorder, off unless a caller turns it on
+(``recording(True)``; ``profiler_trace`` does for its window): ``span``
+names a stage of the render (``pbrs.pass``, ``pbrs.camera_rays``,
+``pbrs.bounce``, ``pbrs.trace``, ``pbrs.occlude``, ``pbrs.all_reduce``)
+as a ``torch.profiler.record_function``, so it lands in a running
+profiler's trace on the clock of the device's work; ``count_lanes`` adds
+each bounce's live and launched lanes (``counters``).
 """
 
 from __future__ import annotations
@@ -42,12 +50,64 @@ import numpy as np
 import torch
 
 
+class _Recorder:
+    """The recorder's state: whether it is on, each device's live-lane
+    counts (int64 scalars on the device, one a bounce, summed when read)
+    and the launched lanes (a host int)."""
+
+    def __init__(self):
+        self.on = False
+        self.live = {}
+        self.launched = 0
+
+
+_REC = _Recorder()
+_NO_SPAN = contextlib.nullcontext()
+
+
+def recording(on: bool) -> None:
+    """Turn the recorder on, its counters from zero, or off."""
+    _REC.on = bool(on)
+    if _REC.on:
+        _REC.live = {}
+        _REC.launched = 0
+
+
+def span(name: str):
+    """A context naming a stage ``name`` ("pbrs.<stage>"): with the
+    recorder off, one shared no-op context; on, a
+    ``torch.profiler.record_function``, which a running profiler records
+    as a ``user_annotation`` event."""
+    if not _REC.on:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+def count_lanes(alive, launched: int) -> None:
+    """With the recorder on, add a bounce's live lanes (``alive != 0``,
+    counted on the device by one launch, with no sync) and the `launched`
+    lanes of its batch to the counters; off, nothing."""
+    if not _REC.on:
+        return
+    _REC.live.setdefault(alive.device, []).append(torch.count_nonzero(alive))
+    _REC.launched += int(launched)
+
+
+def counters() -> dict:
+    """{live, launched}: lane-bounces counted since the recorder was
+    turned on (reading the live count syncs each device once)."""
+    return {"live": sum(int(torch.stack(c).sum()) for c in
+                        _REC.live.values()),
+            "launched": _REC.launched}
+
+
 @contextlib.contextmanager
 def profiler_trace(profile_dir: str | None):
-    """A torch.profiler window (host ops, and the card's kernels where
-    there is a card) written on exit as a Chrome trace,
-    ``<profile_dir>/trace_<pid>_<ns>.json``; a no-op when profile_dir is
-    falsy."""
+    """A torch.profiler window (host ops, the recorder's spans, and the
+    card's kernels where there is a card) written on exit as a Chrome
+    trace, ``<profile_dir>/trace_<pid>_<ns>.json``; a no-op when
+    profile_dir is falsy. The recorder is on for the window (and left on
+    if a caller had turned it on)."""
     if not profile_dir:
         yield
         return
@@ -55,8 +115,15 @@ def profiler_trace(profile_dir: str | None):
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        yield
+    was_on = _REC.on
+    if not was_on:
+        recording(True)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            yield
+    finally:
+        if not was_on:
+            recording(False)
     prof.export_chrome_trace(os.path.join(
         profile_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 

@@ -64,6 +64,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from . import profiling
 from .accel import dispatch as trace_dispatch
 from .accel import fused_kernel as fk
 from .accel import fused_single_lobe as fsl
@@ -476,22 +477,23 @@ def render_image(scene, spp: int = 4, max_depth: int = 5,
     t0 = time.time()
     trace = contextlib.ExitStack()
     if profile_dir:
-        from . import profiling
-
         trace.enter_context(profiling.profiler_trace(profile_dir))
     try:
         for s in range(film.samples_done, spp_total):
             # One sample index per launch: a chunk never exceeds the frame,
             # so the reference's multi-sample packing (chunk // n > 1) never
             # fires. Stage every chunk, then commit: an interrupt mid-sample
-            # leaves (accum, samples_done) consistent.
-            staged = [kernel(pix_dev[c], s) for c in range(n_chunks)]
-            for c, out in enumerate(staged):
-                accum[c] = accum[c] + out[0]
-                traced = traced + out[1]
-                if debug_checks:
-                    audit = audit + out[2]
-                stats.launches += 1
+            # leaves (accum, samples_done) consistent. The pass span closes
+            # before the commit, so whatever a commit starts or stops falls
+            # between two passes.
+            with profiling.span("pbrs.pass"):
+                staged = [kernel(pix_dev[c], s) for c in range(n_chunks)]
+                for c, out in enumerate(staged):
+                    accum[c] = accum[c] + out[0]
+                    traced = traced + out[1]
+                    if debug_checks:
+                        audit = audit + out[2]
+                    stats.launches += 1
             film.samples_done = s + 1
             stats.camera_rays += n
             if progress:

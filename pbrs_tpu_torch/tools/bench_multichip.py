@@ -30,13 +30,14 @@ import datetime
 import json
 import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import cli, parallel
+from .. import cli, parallel, profiling
 from ..accel import dispatch as trace_dispatch
 from ..accel import fused_kernel as fk
 from ..accel import fused_single_lobe as fsl
@@ -129,6 +130,29 @@ def _run_job(dev, scene, job, mesh, cache):
     return film[:n].cpu().numpy()
 
 
+def _span_counts(fn):
+    """fn() under a CPU torch.profiler with the recorder on: (its result,
+    {pbrs.* span name: events}), read from the window's Chrome trace."""
+    profiling.recording(True)
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            out = fn()
+    finally:
+        profiling.recording(False)
+    with tempfile.TemporaryDirectory(prefix="pbrs_spans_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    counts = {}
+    for e in events:
+        name = str(e.get("name", ""))
+        if e.get("ph") == "X" and name.startswith("pbrs."):
+            counts[name] = counts.get(name, 0) + 1
+    return out, counts
+
+
 def _synchronize(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -142,12 +166,15 @@ def layout_rank(dev, scenes, jobs, iters=0):
     "dp", "sp", "depth"} and either "spp" (render_image_sharded) or
     "samples" and "integrator" (render_batch_sharded: "fused_diffuse",
     "fused_single_lobe", "fused_wave" or None). With iters > 0 a job
-    renders once to warm up and then `iters` times, timed; else once.
+    renders once to warm up and then `iters` times, timed; else once. A
+    job with "spans" true renders under a CPU torch.profiler with the
+    recorder on.
 
     Returns {"rank", "coords": this rank's mesh coordinate a job (None
     outside the mesh), "runs": a job each {"out": the image or film (rank
     0, else None), "seconds": the best render's wall time, "launches":
-    {kernel: launches on this rank over the job's renders}}}."""
+    {kernel: launches on this rank over the job's renders}, "spans":
+    {pbrs.* span name: events on this rank}, empty without "spans"}}."""
     built = {name: buffers.scene_from_arrays(arrays).to(dev)
              for name, arrays in scenes.items()}
     cache = {}
@@ -158,19 +185,25 @@ def layout_rank(dev, scenes, jobs, iters=0):
         coords.append(None if coord is None else tuple(coord))
         for m in COUNTERS.values():
             m.LAUNCHES = 0
-        out, times = None, []
+        out, times, spans = None, [], {}
         for _ in range(1 + iters if iters else 1):
             _synchronize(dev)
             t0 = time.perf_counter()
             if coord is not None:
-                out = _run_job(dev, built[job["scene"]], job, mesh, cache)
+                render = (lambda: _run_job(dev, built[job["scene"]], job,
+                                           mesh, cache))
+                if job.get("spans"):
+                    out, spans = _span_counts(render)
+                else:
+                    out = render()
             _synchronize(dev)
             times.append(time.perf_counter() - t0)
         best = min(times[1:] if iters else times)
         runs.append({"out": out if dist.get_rank() == 0 else None,
                      "seconds": best,
                      "launches": {k: m.LAUNCHES for k, m in COUNTERS.items()
-                                  if m.LAUNCHES}})
+                                  if m.LAUNCHES},
+                     "spans": spans})
     return {"rank": dist.get_rank(), "coords": coords, "runs": runs}
 
 

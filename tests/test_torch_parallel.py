@@ -48,7 +48,7 @@ def _carry(jscene):
 
 def _jobs():
     jobs = [{"scene": "cornell", "dp": dp, "sp": sp, "depth": DEPTH,
-             "spp": 4} for dp, sp in LAYOUTS]
+             "spp": 4, "spans": (dp, sp) == (1, 2)} for dp, sp in LAYOUTS]
     jobs.append({"scene": "cornell", "dp": 1, "sp": 2, "depth": DEPTH,
                  "spp": 9})
     for kind, (scene, _) in FUSED.items():
@@ -128,10 +128,27 @@ def test_dp_layouts_bit_equal(ranks, dp, sp):
 
 
 def test_sp_layout_within_contract(ranks):
-    """An sp split re-associates each pixel's sum of samples."""
+    """An sp split re-associates each pixel's sum of samples (dp1xsp2
+    renders with the recorder on, which changes no pixel)."""
     np.testing.assert_allclose(_out(ranks, dp=1, sp=2, spp=4),
                                _out(ranks, dp=1, sp=1, spp=4),
                                atol=ATOL, rtol=RTOL)
+
+
+def test_sp_layout_records_its_all_reduce(ranks):
+    """With the recorder on, each rank of dp1xsp2 records one pbrs.pass a
+    sample index it renders and one pbrs.all_reduce a batch; the ranks
+    outside that mesh, and the jobs without the recorder, record none."""
+    job = next(i for i, j in enumerate(_jobs()) if j.get("spans"))
+    for rank, res in enumerate(ranks):
+        for i, run in enumerate(res["runs"]):
+            if i != job or rank >= 2:
+                assert run["spans"] == {}
+                continue
+            # spp 4 at sp 2: two batches of 2 sample indices, one a rank.
+            assert run["spans"]["pbrs.pass"] == 2
+            assert run["spans"]["pbrs.all_reduce"] == 2
+            assert run["spans"]["pbrs.bounce"] == 2 * DEPTH
 
 
 @pytest.fixture(scope="module")

@@ -47,7 +47,8 @@ def _trace_names(path):
 
 def test_profiler_trace_writes_chrome_trace(cornell, tmp_path):
     """A no-op without a directory; with one, render_image's sample loop
-    lands in a Chrome trace there."""
+    lands in a Chrome trace there, its passes named by the recorder, which
+    is off again after the window."""
     tscene = cornell[1]
     with profiling.profiler_trace(None):
         pass
@@ -58,7 +59,10 @@ def test_profiler_trace_writes_chrome_trace(cornell, tmp_path):
                                  profile_dir=str(tmp_path / "prof"))
     files = glob.glob(str(tmp_path / "prof" / "*.json"))
     assert len(files) == 1 and img.shape == (8, 8, 3)
-    assert any(n and n.startswith("aten::") for n in _trace_names(files[0]))
+    names = _trace_names(files[0])
+    assert any(n and n.startswith("aten::") for n in names)
+    assert "pbrs.pass" in names
+    assert profiling.span("pbrs.pass") is profiling.span("pbrs.bounce")
 
 
 def _sample_argv(action):
